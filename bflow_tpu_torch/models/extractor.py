@@ -1,0 +1,194 @@
+"""Feature/context encoder (RAFT BasicEncoder), NCHW.
+
+Counterpart of bflow_tpu/models/extractor.py: 7x7 stride-2 stem, three
+two-block residual stages at 64/96/128 channels (strides 1/2/2) and a 1x1
+output conv, an x8 spatial downsample overall. The norm is chosen per
+encoder (group / batch / instance / none). Module and parameter names are
+the reference checkpoint's (``conv1``, ``norm1``, ``layer2.0.downsample.0``
+...), so ``state_dict()`` lines up with the released ``net.*`` keys.
+
+Precision follows the JAX modules' ``dtype``: parameters stay f32; with a
+compute dtype, each conv casts its input, weight and bias to it at use.
+Norm statistics are taken in f32 and the result is cast back.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import List, Optional, Sequence, Union
+
+import torch
+import torch.nn as nn
+import torch.nn.functional as F
+
+# std of a standard normal truncated to [-2, 2]: flax's variance_scaling
+# divides by it so that the truncated draw keeps the requested variance
+_TRUNC_STD = 0.87962566103423978
+
+
+def kaiming_out_(weight: torch.Tensor,
+                 generator: Optional[torch.Generator]) -> None:
+    """He/Kaiming init with fan-out and gain 2, truncated normal: the JAX
+    package's ``kaiming_out`` (flax variance_scaling(2, fan_out,
+    truncated_normal)) on an OIHW weight."""
+    fan_out = weight.shape[0] * math.prod(weight.shape[2:])
+    std = math.sqrt(2.0 / fan_out) / _TRUNC_STD
+    with torch.no_grad():
+        nn.init.trunc_normal_(weight, 0.0, std, -2.0 * std, 2.0 * std,
+                              generator=generator)
+
+
+class Conv2d(nn.Conv2d):
+    """nn.Conv2d that runs in ``compute_dtype`` (None: the input's own
+    type) with its f32 parameters cast at use."""
+
+    def __init__(self, cin: int, cout: int, kernel_size, stride=1,
+                 padding=0, compute_dtype: Optional[torch.dtype] = None):
+        super().__init__(cin, cout, kernel_size, stride=stride,
+                         padding=padding)
+        self.compute_dtype = compute_dtype
+
+    def reset_parameters(self, generator: Optional[torch.Generator] = None):
+        # nn.Conv2d.__init__ calls this without a generator (torch's global
+        # RNG); init_weights calls it again with a seeded one
+        kaiming_out_(self.weight, generator)
+        nn.init.zeros_(self.bias)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if self.compute_dtype is not None:
+            x = x.to(self.compute_dtype)
+        return F.conv2d(x, self.weight.to(x.dtype), self.bias.to(x.dtype),
+                        self.stride, self.padding)
+
+
+class Conv1x1(Conv2d):
+    """1x1 conv; a strided one is a subsample followed by the 1x1 conv."""
+
+    def __init__(self, cin: int, cout: int, stride: int = 1,
+                 compute_dtype: Optional[torch.dtype] = None):
+        super().__init__(cin, cout, 1, compute_dtype=compute_dtype)
+        self.subsample = stride
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if self.subsample != 1:
+            x = x[:, :, ::self.subsample, ::self.subsample]
+        return super().forward(x)
+
+
+class GroupNorm(nn.GroupNorm):
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return F.group_norm(x.float(), self.num_groups, self.weight,
+                            self.bias, self.eps).to(x.dtype)
+
+
+class BatchNorm(nn.BatchNorm2d):
+    """BatchNorm with running statistics (inference only in this port)."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if self.training:
+            raise NotImplementedError(
+                "BatchNorm training statistics are not ported yet "
+                "(ROADMAP Queue 1, training path); call .eval()")
+        return F.batch_norm(x.float(), self.running_mean, self.running_var,
+                            self.weight, self.bias, False, 0.0,
+                            self.eps).to(x.dtype)
+
+
+class InstanceNorm(nn.Module):
+    """InstanceNorm2d with torch defaults (no affine, no running stats).
+
+    f32 inputs take the two-pass mean/variance; bf16 inputs take the JAX
+    fast mode's single pass, var = max(E[x^2] - E[x]^2, 0) in f32."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        xf = x.float()
+        m1 = xf.mean(dim=(2, 3), keepdim=True)
+        if x.dtype == torch.float32:
+            var = (xf - m1).square().mean(dim=(2, 3), keepdim=True)
+        else:
+            m2 = xf.square().mean(dim=(2, 3), keepdim=True)
+            var = torch.clamp(m2 - m1.square(), min=0.0)
+        return ((xf - m1) * torch.rsqrt(var + 1e-5)).to(x.dtype)
+
+
+def make_norm(kind: str, channels: int, num_groups: int) -> nn.Module:
+    if kind == "group":
+        return GroupNorm(num_groups, channels, eps=1e-5)
+    if kind == "batch":
+        return BatchNorm(channels, eps=1e-5, momentum=0.1)
+    if kind == "instance":
+        return InstanceNorm()
+    if kind == "none":
+        return nn.Identity()
+    raise NotImplementedError(kind)
+
+
+class ResidualBlock(nn.Module):
+    def __init__(self, in_planes: int, planes: int, norm: str,
+                 stride: int = 1, compute_dtype=None):
+        super().__init__()
+        groups = planes // 8
+        self.conv1 = Conv2d(in_planes, planes, 3, stride=stride, padding=1,
+                            compute_dtype=compute_dtype)
+        self.conv2 = Conv2d(planes, planes, 3, padding=1,
+                            compute_dtype=compute_dtype)
+        self.norm1 = make_norm(norm, planes, groups)
+        self.norm2 = make_norm(norm, planes, groups)
+        self.downsample = None
+        if stride != 1:
+            self.downsample = nn.Sequential(
+                Conv1x1(in_planes, planes, stride,
+                        compute_dtype=compute_dtype),
+                make_norm(norm, planes, groups),
+            )
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        y = F.relu(self.norm1(self.conv1(x)))
+        y = F.relu(self.norm2(self.conv2(y)))
+        if self.downsample is not None:
+            x = self.downsample(x)
+        return F.relu(x + y)
+
+
+class BasicEncoder(nn.Module):
+    """(N, C, H, W), or a list of such (run as one batched call) ->
+    (N, output_dim, H/8, W/8), or the list of outputs."""
+
+    def __init__(self, input_dim: int, output_dim: int = 128,
+                 norm: str = "batch", compute_dtype=None):
+        super().__init__()
+        cdt = compute_dtype
+        self.conv1 = Conv2d(input_dim, 64, 7, stride=2, padding=3,
+                            compute_dtype=cdt)
+        self.norm1 = make_norm(norm, 64, 8)
+        in_planes = 64
+        for stage, planes in ((1, 64), (2, 96), (3, 128)):
+            stride = 1 if stage == 1 else 2
+            setattr(self, f"layer{stage}", nn.Sequential(
+                ResidualBlock(in_planes, planes, norm, stride, cdt),
+                ResidualBlock(planes, planes, norm, 1, cdt),
+            ))
+            in_planes = planes
+        self.conv2 = Conv1x1(128, output_dim, compute_dtype=cdt)
+
+    def forward(
+        self, x: Union[torch.Tensor, Sequence[torch.Tensor]],
+    ) -> Union[torch.Tensor, List[torch.Tensor]]:
+        is_list = isinstance(x, (list, tuple))
+        if is_list:
+            n, parts = x[0].shape[0], len(x)
+            x = torch.cat(list(x), dim=0)
+        x = F.relu(self.norm1(self.conv1(x)))
+        x = self.layer3(self.layer2(self.layer1(x)))
+        x = self.conv2(x)
+        if is_list:
+            return list(torch.split(x, n, dim=0))
+        return x
+
+
+def init_weights(module: nn.Module, generator: torch.Generator) -> None:
+    """Seeded init of every conv (kaiming_out weights, zero biases); norm
+    scales start at 1 and shifts at 0, running stats at (0, 1)."""
+    for m in module.modules():
+        if isinstance(m, Conv2d):
+            m.reset_parameters(generator)

@@ -1,0 +1,203 @@
+"""RAFT-Spline: recurrent continuous-time flow regression, PyTorch.
+
+Counterpart of bflow_tpu/models/raft_spline.py, inference forward
+(test_mode=True). Inputs keep the JAX layout: the voxel grid is
+(N, H, W, nbins_total), the images a (2, N, H, W, 3) stack of the
+reference and target boundary frames; the outputs are BezierCurves with
+params (N, H, W, P, 2). Inside, activations are NCHW.
+
+Per forward: the encoders and the correlation pyramid run once, then
+``iters`` refinement steps each evaluate the Bezier curves at the static
+lookup times, look up the correlation windows (one lookup-kernel launch per
+pyramid level) and run the update block; the last step's curves are
+convex-upsampled.
+"""
+
+from __future__ import annotations
+
+from typing import List, Optional, Tuple
+
+import torch
+import torch.nn as nn
+
+from bflow_tpu_torch.models.config import RaftSplineConfig
+from bflow_tpu_torch.models.corr import (
+    LOOKUPS,
+    build_corr_pyramid,
+    corr_lookup,
+)
+from bflow_tpu_torch.models.extractor import BasicEncoder
+from bflow_tpu_torch.models.update import BasicUpdateBlock, compute_dtype_of
+from bflow_tpu_torch.ops.bezier import BezierCurves
+from bflow_tpu_torch.ops.sampler import coords_grid
+
+# config options of the JAX package that this port does not run yet, with
+# the ROADMAP item that ports them
+_NOT_PORTED = (
+    ("remat_updates", "Queue 1 item 7 (training path)"),
+    ("scan_iters", "Queue 1 item 10 (opt-in modes)"),
+    ("pallas_stem", "Queue 2 item 4 (stem conv kernel)"),
+    ("pallas_conv", "Queue 2 item 5 (3x3 conv kernel)"),
+)
+
+
+def check_supported(cfg: RaftSplineConfig) -> None:
+    """Raise NotImplementedError for a config option not ported yet."""
+    for field, item in _NOT_PORTED:
+        if getattr(cfg, field):
+            raise NotImplementedError(
+                f"{field}=True is not ported yet (ROADMAP {item})")
+    if cfg.onehot_from_level >= 0:
+        raise NotImplementedError(
+            "onehot_from_level >= 0 is not ported yet "
+            "(ROADMAP Queue 1 item 10, opt-in modes)")
+    if cfg.lookup_method not in LOOKUPS:
+        raise NotImplementedError(
+            f"lookup_method={cfg.lookup_method!r} is not ported yet "
+            f"(ROADMAP Queue 1 item 10; pallas_q8 also Queue 2 item 3)")
+
+
+def bezier_to_channels(bez: BezierCurves) -> torch.Tensor:
+    """(N,H,W,P,2) -> (N,2P,H,W), dimension-major (x_P1..x_Pn, y_P1..)."""
+    N, H, W, P, _ = bez.params.shape
+    return bez.params.transpose(3, 4).reshape(N, H, W, 2 * P).permute(
+        0, 3, 1, 2)
+
+
+def channels_to_bezier_delta(delta: torch.Tensor, degree: int) -> torch.Tensor:
+    """(N,2P,H,W) dimension-major -> (N,H,W,P,2) params layout."""
+    N, C, H, W = delta.shape
+    assert C == 2 * degree
+    return delta.permute(0, 2, 3, 1).reshape(N, H, W, 2, degree).transpose(
+        3, 4)
+
+
+class RAFTSpline(nn.Module):
+    def __init__(self, config: RaftSplineConfig):
+        super().__init__()
+        check_supported(config)
+        self.config = cfg = config
+        cdt = compute_dtype_of(cfg)
+        ctx_in = 0
+        if cfg.use_events:
+            self.fnet_ev = BasicEncoder(cfg.nbins_correlation,
+                                        cfg.feature_dim, cfg.feature_norm,
+                                        cdt)
+            ctx_in += cfg.nbins_context
+        if cfg.use_images:
+            self.fnet_img = BasicEncoder(3, cfg.feature_dim,
+                                         cfg.feature_norm, cdt)
+            ctx_in += 3
+        self.cnet = BasicEncoder(ctx_in, cfg.hidden_dim + cfg.context_dim,
+                                 cfg.context_norm, cdt)
+        self.update_block = BasicUpdateBlock(cfg)
+
+    def _gen_voxel_grids(
+        self, voxel_nchw: torch.Tensor,
+    ) -> Tuple[List[torch.Tensor], torch.Tensor]:
+        """Slice the merged (N, ctx+corr-1, H, W) grid into the per-target
+        correlation windows (reference index 0 first) and the context
+        grid."""
+        cfg = self.config
+        if voxel_nchw.shape[1] != cfg.nbins_total:
+            raise ValueError(f"voxel grid has {voxel_nchw.shape[1]} bins, "
+                             f"the config {cfg.nbins_total}")
+        grids = [voxel_nchw[:, idx:idx + cfg.nbins_correlation]
+                 for idx in (0, *cfg.ev_target_indices)]
+        return grids, voxel_nchw[:, -cfg.nbins_context:]
+
+    def forward(
+        self,
+        voxel_grid: Optional[torch.Tensor] = None,
+        images: Optional[torch.Tensor] = None,
+        iters: Optional[int] = None,
+        flow_init: Optional[BezierCurves] = None,
+        test_mode: bool = False,
+    ) -> Tuple[BezierCurves, BezierCurves]:
+        """Returns (final low-res curves, upsampled curves)."""
+        if not test_mode:
+            raise NotImplementedError(
+                "the training forward is not ported yet (ROADMAP Queue 1 "
+                "item 7); call with test_mode=True")
+        with torch.no_grad():
+            return self._infer(voxel_grid, images, iters, flow_init)
+
+    def _infer(self, voxel_grid, images, iters, flow_init):
+        cfg = self.config
+        iters = cfg.iters_test if iters is None else iters
+        if iters < 1:
+            raise ValueError(f"iters must be positive, got {iters}")
+        cdt = compute_dtype_of(cfg)
+        f32_corr = cfg.corr_precision == "float32"
+        fmap_refs: List[torch.Tensor] = []
+        fmap_tgts: List[torch.Tensor] = []
+        context = None
+
+        if cfg.use_events:
+            if voxel_grid is None:
+                raise ValueError("this config uses events: pass voxel_grid")
+            # cast once before slicing, so the slices move bf16
+            if cdt is not None:
+                voxel_grid = voxel_grid.to(cdt)
+            grids, context = self._gen_voxel_grids(
+                voxel_grid.permute(0, 3, 1, 2))
+            fmaps = self.fnet_ev(grids)
+            if f32_corr:
+                fmaps = [f.float() for f in fmaps]
+            for f in fmaps[1:]:
+                fmap_refs.append(fmaps[0])
+                fmap_tgts.append(f)
+
+        if cfg.use_images:
+            if images is None or images.shape[0] != 2:
+                raise ValueError("this config uses frames: pass images as "
+                                 "a (2, N, H, W, 3) stack")
+            imgs = 2.0 * (images.float() / 255.0) - 1.0
+            if cdt is not None:
+                imgs = imgs.to(cdt)
+            imgs = imgs.permute(0, 1, 4, 2, 3)  # (2, N, 3, H, W)
+            f0, f1 = self.fnet_img([imgs[0], imgs[1]])
+            if f32_corr:
+                f0, f1 = f0.float(), f1.float()
+            fmap_refs.append(f0)
+            fmap_tgts.append(f1)
+            context = (imgs[0] if context is None
+                       else torch.cat([context, imgs[0]], dim=1))
+
+        cnet_out = self.cnet(context)
+        net = torch.tanh(cnet_out[:, :cfg.hidden_dim])
+        inp = torch.relu(cnet_out[:, cfg.hidden_dim:])
+
+        # (T, N, D, h1, w1) -> (T, N, h1, w1, D)
+        pyramid = build_corr_pyramid(
+            torch.stack(fmap_refs).permute(0, 1, 3, 4, 2),
+            torch.stack(fmap_tgts).permute(0, 1, 3, 4, 2),
+            cfg.levels_per_target,
+            precision=cfg.corr_precision,
+        )
+
+        N, _, H, W = context.shape
+        if H % 8 or W % 8:
+            raise ValueError(f"height and width must be multiples of 8, "
+                             f"got {H}x{W}")
+        h1, w1 = H // 8, W // 8
+        coords0 = coords_grid(N, h1, w1, device=context.device)
+        bezier = BezierCurves.zeros(N, h1, w1, cfg.bezier_degree,
+                                    device=context.device)
+        if flow_init is not None:
+            bezier = bezier.delta_update(flow_init.params)
+
+        ts = cfg.lookup_timestamps
+        bezier_up = None
+        for itr in range(iters):
+            coords1 = coords0[None] + bezier.flow_at(ts)
+            corr = corr_lookup(pyramid, coords1, cfg.radius,
+                               method=cfg.lookup_method,
+                               concat=not cfg.fuse_corr_conv)
+            net, mask, delta = self.update_block(
+                net, inp, corr, bezier_to_channels(bezier))
+            bezier = bezier.delta_update(
+                channels_to_bezier_delta(delta, cfg.bezier_degree))
+            if itr == iters - 1:
+                bezier_up = bezier.upsampled(mask.permute(0, 2, 3, 1))
+        return bezier, bezier_up

@@ -1,0 +1,149 @@
+"""Update block: motion encoder, separable conv GRU, prediction heads.
+
+Counterpart of bflow_tpu/models/update.py, NCHW. The Bezier parameter
+channels fed to the convolutions are dimension-major (x_P1..x_Pn,
+y_P1..y_Pn), as in the reference, so imported weights line up channel for
+channel. The correlation input keeps the JAX layout: one (N, h1, w1, C)
+map, or the per-level (Tl, N, h1, w1, (2r+1)^2) lookups (fuse_corr_conv).
+"""
+
+from __future__ import annotations
+
+from typing import List, Optional, Tuple, Union
+
+import torch
+import torch.nn as nn
+import torch.nn.functional as F
+
+from bflow_tpu_torch.models.config import RaftSplineConfig
+from bflow_tpu_torch.models.extractor import Conv2d
+
+
+def compute_dtype_of(cfg: RaftSplineConfig) -> Optional[torch.dtype]:
+    return torch.bfloat16 if cfg.compute_dtype == "bfloat16" else None
+
+
+class BezierHead(nn.Module):
+    def __init__(self, input_dim: int, bezier_degree: int,
+                 hidden_dim: int = 256, compute_dtype=None):
+        super().__init__()
+        self.conv1 = Conv2d(input_dim, hidden_dim, 3, padding=1,
+                            compute_dtype=compute_dtype)
+        self.conv2 = Conv2d(hidden_dim, 2 * bezier_degree, 3, padding=1,
+                            compute_dtype=compute_dtype)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return self.conv2(F.relu(self.conv1(x)))
+
+
+class SepConvGRU(nn.Module):
+    """Two-pass gated GRU with separable 1x5 / 5x1 convolutions, with the
+    reference's per-gate parameters (convz1, convr1, convq1, ...)."""
+
+    def __init__(self, hidden_dim: int = 128, input_dim: int = 256,
+                 compute_dtype=None):
+        super().__init__()
+        cin = hidden_dim + input_dim
+        for suffix, k, pad in (("1", (1, 5), (0, 2)), ("2", (5, 1), (2, 0))):
+            for gate in "zrq":
+                setattr(self, f"conv{gate}{suffix}", Conv2d(
+                    cin, hidden_dim, k, padding=pad,
+                    compute_dtype=compute_dtype))
+
+    def forward(self, h: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+        for suffix in "12":
+            hx = torch.cat([h, x], dim=1)
+            z = torch.sigmoid(getattr(self, f"convz{suffix}")(hx))
+            r = torch.sigmoid(getattr(self, f"convr{suffix}")(hx))
+            h = h.to(r.dtype)
+            q = torch.tanh(getattr(self, f"convq{suffix}")(
+                torch.cat([r * h, x.to(r.dtype)], dim=1)))
+            h = (1.0 - z) * h + z * q
+        return h
+
+
+class BasicMotionEncoder(nn.Module):
+    def __init__(self, cfg: RaftSplineConfig):
+        super().__init__()
+        cdt = compute_dtype_of(cfg)
+        bz = 2 * cfg.bezier_degree
+        self.corr_planes = cfg.corr_planes
+        self.compute_dtype = cdt
+        # convc1 holds the parameters only: forward contracts them itself
+        self.convc1 = Conv2d(cfg.corr_planes, 256, 1, compute_dtype=cdt)
+        self.convc2 = Conv2d(256, 192, 3, padding=1, compute_dtype=cdt)
+        self.convf1 = Conv2d(bz, 128, 7, padding=3, compute_dtype=cdt)
+        self.convf2 = Conv2d(128, 64, 3, padding=1, compute_dtype=cdt)
+        self.conv = Conv2d(192 + 64, cfg.motion_dim - bz, 3, padding=1,
+                           compute_dtype=cdt)
+
+    def _corr_features(
+        self, corr: Union[torch.Tensor, List[torch.Tensor]],
+    ) -> torch.Tensor:
+        """convc1 + ReLU over the correlation lookups -> (N, 256, h1, w1)."""
+        cdt = self.compute_dtype
+        w = self.convc1.weight.reshape(256, self.corr_planes)
+        b = self.convc1.bias
+        if isinstance(corr, (list, tuple)):
+            # fused form: the per-level lookups in (level, target, window)
+            # order are convc1's input channels. The weights are rounded
+            # to the compute dtype, the contraction accumulates in f32,
+            # the f32 bias is added, then one rounding and the ReLU: the
+            # JAX package's per-level partial sums, as one product.
+            Tl, N, h1, w1, _ = corr[0].shape
+            x = torch.cat([f.permute(1, 2, 3, 0, 4).reshape(N * h1 * w1, -1)
+                           for f in corr], dim=1)
+            if x.shape[1] != self.corr_planes:
+                raise ValueError((x.shape, self.corr_planes))
+            if cdt is not None:
+                w = w.to(cdt)
+                x = x.to(cdt)
+            y = torch.addmm(b.float(), x.float(), w.float().t())
+            y = y.to(w.dtype)
+        else:
+            N, h1, w1, C = corr.shape
+            if C != self.corr_planes:
+                raise ValueError((corr.shape, self.corr_planes))
+            x = corr.reshape(-1, C)
+            if cdt is not None:
+                x, w, b = x.to(cdt), w.to(cdt), b.to(cdt)
+            y = F.linear(x, w, b)
+        return F.relu(y).reshape(N, h1, w1, 256).permute(0, 3, 1, 2)
+
+    def forward(self, bezier: torch.Tensor, corr) -> torch.Tensor:
+        cor = F.relu(self.convc2(self._corr_features(corr)))
+        bez = F.relu(self.convf2(F.relu(self.convf1(bezier))))
+        out = F.relu(self.conv(torch.cat([cor, bez], dim=1)))
+        return torch.cat([out, bezier.to(out.dtype)], dim=1)
+
+
+class BasicUpdateBlock(nn.Module):
+    def __init__(self, cfg: RaftSplineConfig):
+        super().__init__()
+        cdt = compute_dtype_of(cfg)
+        self.encoder = BasicMotionEncoder(cfg)
+        self.gru = SepConvGRU(cfg.hidden_dim,
+                              cfg.context_dim + cfg.motion_dim, cdt)
+        self.bezier_head = BezierHead(cfg.hidden_dim, cfg.bezier_degree,
+                                      compute_dtype=cdt)
+        self.mask = nn.Sequential(
+            Conv2d(cfg.hidden_dim, 256, 3, padding=1, compute_dtype=cdt),
+            nn.ReLU(),
+            Conv2d(256, 64 * 9, 1, compute_dtype=cdt),
+        )
+
+    def forward(
+        self, net: torch.Tensor, inp: torch.Tensor, corr,
+        bezier: torch.Tensor,
+    ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+        """NCHW net, inp and bezier channels -> (new hidden state,
+        upsample mask logits (N, 576, h1, w1) f32, Bezier delta
+        (N, 2P, h1, w1) f32)."""
+        motion = self.encoder(bezier, corr)
+        gru_in = torch.cat([inp.to(motion.dtype), motion], dim=1)
+        net = self.gru(net, gru_in)
+        delta = self.bezier_head(net)
+        m = self.mask(net)
+        # gradient-balancing scale of the reference; the heads emit f32
+        # so the Bezier state and the upsampling stay full precision
+        return net, (0.25 * m).float(), delta.float()

@@ -1,0 +1,97 @@
+"""Bezier curve parameterization of continuous-time optical flow.
+
+Per pixel, the model regresses the control points P1..Pn of a degree-n
+Bezier curve (P0 == 0, the pixel itself); the flow at a time t in [0, 1]
+is the curve evaluated at t. Evaluation times are Python floats, so the
+Bernstein coefficients are computed on the host in float64 once per call.
+
+Layout as in the JAX package: params (N, H, W, degree, 2), last axis
+(x, y).
+"""
+
+from __future__ import annotations
+
+import math
+from dataclasses import dataclass
+from typing import Sequence, Union
+
+import numpy as np
+import torch
+
+from bflow_tpu_torch.ops.upsample import convex_upsample
+
+TimeLike = Union[float, int, Sequence[float]]
+
+
+def bezier_coefficients(degree: int, timestamps: Sequence[float]) -> np.ndarray:
+    """Bernstein coefficients for control points P1..Pn at given times.
+
+    Returns (T, degree) float64: coeff[t, i-1] = C(n, i) (1-t)^(n-i) t^i.
+    P0's term is omitted because P0 == 0 by construction.
+    """
+    assert degree >= 1
+    ts = np.asarray(timestamps, dtype=np.float64)
+    assert ts.ndim == 1 and ts.size > 0
+    assert ts.min() >= 0.0 and ts.max() <= 1.0
+    out = np.empty((ts.size, degree), dtype=np.float64)
+    for j in range(degree):
+        i = j + 1
+        out[:, j] = math.comb(degree, i) * (1.0 - ts) ** (degree - i) * ts**i
+    return out
+
+
+@dataclass(frozen=True)
+class BezierCurves:
+    """Per-pixel Bezier flow curves; params (N, H, W, degree, 2)."""
+
+    params: torch.Tensor
+
+    @classmethod
+    def zeros(cls, batch: int, ht: int, wd: int, degree: int,
+              device=None, dtype=torch.float32) -> "BezierCurves":
+        assert degree >= 1
+        return cls(torch.zeros((batch, ht, wd, degree, 2),
+                               device=device, dtype=dtype))
+
+    @property
+    def degree(self) -> int:
+        return self.params.shape[3]
+
+    def delta_update(self, delta: torch.Tensor) -> "BezierCurves":
+        if delta.shape != self.params.shape:
+            raise ValueError(f"delta {tuple(delta.shape)} does not match "
+                             f"params {tuple(self.params.shape)}")
+        return BezierCurves(self.params + delta)
+
+    def flow_at(self, times: TimeLike) -> torch.Tensor:
+        """Flow from the reference frame at time(s) in [0, 1].
+
+        Scalar time -> (N, H, W, 2); sequence of T times -> (T, N, H, W, 2).
+        """
+        scalar = isinstance(times, (int, float))
+        ts = (float(times),) if scalar else tuple(float(t) for t in times)
+        flows = []
+        for t in ts:
+            if t == 0.0:
+                flows.append(torch.zeros_like(self.params[..., 0, :]))
+            elif t == 1.0:
+                # all Bernstein terms vanish except the last control point
+                flows.append(self.params[..., -1, :])
+            else:
+                coeff = torch.as_tensor(
+                    bezier_coefficients(self.degree, (t,))[0],
+                    dtype=self.params.dtype, device=self.params.device,
+                )
+                flows.append(torch.einsum("nhwpd,p->nhwd",
+                                          self.params, coeff))
+        if scalar:
+            return flows[0]
+        return torch.stack(flows, dim=0)
+
+    def upsampled(self, mask: torch.Tensor, factor: int = 8) -> "BezierCurves":
+        """Convex upsampling of all control points jointly; mask is
+        (N, H, W, 9 * factor**2)."""
+        N, H, W, P, _ = self.params.shape
+        flat = self.params.reshape(N, H, W, P * 2)
+        up = convex_upsample(flat, mask, factor=factor)
+        return BezierCurves(up.reshape(N, H * factor, W * factor, P, 2))

@@ -1,0 +1,188 @@
+"""Guards of the port: it imports no JAX and nothing of bflow_tpu, its
+entry points refuse to fall back to the CPU, its weights bridge round-trips
+through the JAX package's importer, and (on a GPU only) its CUDA kernel
+matches its plain version at the flagship shapes.
+
+JAX is imported inside the tests that use it, so that the GPU tests run on
+a machine without JAX:
+
+    python -m pytest --noconftest -m cuda tests/test_torch_guards.py
+"""
+
+from __future__ import annotations
+
+import ast
+import copy
+import subprocess
+import sys
+from pathlib import Path
+
+import numpy as np
+import pytest
+import torch
+
+import bflow_tpu_torch as bt
+from bflow_tpu_torch.weights import state_dict_from_jax
+from test_torch_common import configs, make_inputs, random_variables
+from test_torch_common import one_torch_thread  # noqa: F401 (autouse)
+
+ROOT = Path(__file__).resolve().parent.parent
+FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "bflow_tpu")
+
+
+def _forbidden(module: str) -> bool:
+    top = module.split(".")[0]
+    return top in FORBIDDEN
+
+
+def test_package_imports_no_jax():
+    """Import the package and every submodule in a fresh interpreter."""
+    code = (
+        "import importlib, pkgutil, sys\n"
+        "import bflow_tpu_torch as p\n"
+        "for m in pkgutil.walk_packages(p.__path__, p.__name__ + '.'):\n"
+        "    importlib.import_module(m.name)\n"
+        "bad = sorted(k for k in sys.modules\n"
+        "             if k.split('.')[0] in %r)\n"
+        "print(len([k for k in sys.modules if k.startswith(p.__name__)]))\n"
+        "assert not bad, bad\n" % (FORBIDDEN,)
+    )
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert int(out.stdout.strip()) >= 15  # every module was imported
+
+
+def _imports(path: Path):
+    tree = ast.parse(path.read_text(), filename=str(path))
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            yield from (a.name for a in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            yield node.module
+
+
+@pytest.mark.parametrize("path", ["chip_smoke.py",
+                                  *sorted(str(p.relative_to(ROOT)) for p in
+                                          (ROOT / "bflow_tpu_torch")
+                                          .rglob("*.py"))])
+def test_source_imports_no_jax(path):
+    bad = [m for m in _imports(ROOT / path) if _forbidden(m)]
+    assert not bad, (path, bad)
+
+
+def test_build_model_without_cuda_raises(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    cfg = bt.RaftSplineConfig()
+    with pytest.raises(RuntimeError, match="CUDA"):
+        bt.build_model(cfg)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        bt.build_model(cfg, device="cuda:0")
+    assert next(bt.build_model(cfg, device="cpu").parameters()).is_cpu
+
+
+@pytest.fixture(scope="module")
+def jax_variables():
+    import jax
+    import jax.numpy as jnp
+
+    from bflow_tpu.models import RAFTSpline as JaxRAFTSpline
+
+    jcfg, tcfg = configs()
+    voxel, images = make_inputs(jcfg, H=32, W=32)
+    model = JaxRAFTSpline(jcfg)
+    init = lambda: model.init(jax.random.PRNGKey(0), jnp.asarray(voxel),
+                              jnp.asarray(images), test_mode=True)
+    return random_variables(init, 3), jax.eval_shape(init), tcfg
+
+
+def test_weights_round_trip_through_importer(jax_variables):
+    """state_dict_from_jax and the JAX package's importer are inverses,
+    batch statistics included."""
+    import jax
+
+    from bflow_tpu.importer.torch_ckpt import convert_state_dict
+
+    variables, template, _ = jax_variables
+    sd = state_dict_from_jax(variables)
+    back = convert_state_dict({"net." + k: v for k, v in sd.items()},
+                              template)
+    flat_v = jax.tree_util.tree_leaves_with_path(variables)
+    flat_b = dict(jax.tree_util.tree_leaves_with_path(back))
+    assert len(flat_v) == len(flat_b) > 100
+    for path, value in flat_v:
+        np.testing.assert_array_equal(np.asarray(flat_b[path]), value,
+                                      err_msg=str(path))
+    assert "batch_stats" in back and back["batch_stats"]
+
+
+def test_weights_match_port_state_dict(jax_variables):
+    variables, _, tcfg = jax_variables
+    model = bt.build_model(tcfg, device="cpu")
+    sd = state_dict_from_jax(variables, model.state_dict())
+    assert set(sd) == set(model.state_dict())
+    for k in ("fnet_ev.layer2.0.downsample.0.weight",
+              "cnet.norm1.running_mean", "update_block.gru.convz1.weight",
+              "update_block.mask.2.bias"):
+        assert k in sd, k
+    w = variables["params"]["fnet_ev"]["conv1"]["kernel"]
+    np.testing.assert_array_equal(sd["fnet_ev.conv1.weight"].numpy(),
+                                  w.transpose(3, 2, 0, 1))
+
+
+@pytest.mark.parametrize("fault", ["unknown_leaf", "missing", "shape",
+                                   "stray_collection"])
+def test_weights_bridge_is_strict(jax_variables, fault):
+    variables, _, tcfg = jax_variables
+    v = copy.deepcopy(variables)
+    with torch.device("meta"):  # shapes only
+        target = bt.RAFTSpline(tcfg).state_dict()
+    conv1 = v["params"]["fnet_ev"]["conv1"]
+    if fault == "unknown_leaf":
+        conv1["gamma"] = conv1["bias"]
+    elif fault == "missing":
+        del v["params"]["update_block"]["gru"]["convz1"]
+    elif fault == "shape":
+        conv1["kernel"] = conv1["kernel"][:, :, :2]
+    else:
+        v["cache"] = {}
+    with pytest.raises((KeyError, ValueError)):
+        state_dict_from_jax(v, target)
+
+
+# ---------------------------------------------------------------------------
+# on the GPU only: the kernel against its plain version (chip_smoke phase 3)
+
+
+@pytest.fixture
+def cuda_device():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the lookup kernel is CUDA C++ "
+                    "with no CPU mode; its plain version is tested above")
+    return torch.device("cuda")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("level", range(4))
+def test_lookup_kernel_matches_plain_on_gpu(cuda_device, dtype, level):
+    import chip_smoke
+
+    from bflow_tpu_torch.kernels import corr_lookup
+
+    Tl, hl, wl = chip_smoke.LEVELS[level]
+    before = corr_lookup.launches
+    rec = chip_smoke.check_lookup_level(Tl, hl, wl, dtype, seed=level,
+                                        timing=False)
+    assert corr_lookup.launches == before + 1
+    assert rec["ok"], rec
+
+
+@pytest.mark.cuda
+def test_lookup_kernel_refuses_gradients_on_gpu(cuda_device):
+    from bflow_tpu_torch.kernels import corr_lookup
+
+    vol = torch.zeros(4, 5, 6, device=cuda_device, requires_grad=True)
+    coords = torch.zeros(4, 2, device=cuda_device)
+    with pytest.raises(NotImplementedError, match="backward"):
+        corr_lookup.corr_lookup_level(vol, coords, 4)
