@@ -7,14 +7,18 @@ from typing import Dict
 
 from bflow_tpu_torch.kernels import corr_lookup
 
-# kernel name -> wrapper module, which keeps a `launches` count
-KERNELS = {corr_lookup.NAME: corr_lookup}
+# kernel name -> (wrapper module, the name of its launch counter there)
+KERNELS = {
+    corr_lookup.NAME: (corr_lookup, "launches"),
+    corr_lookup.BWD_NAME: (corr_lookup, "bwd_launches"),
+}
 
 
 def launch_counts() -> Dict[str, int]:
-    return {name: mod.launches for name, mod in KERNELS.items()}
+    return {name: getattr(mod, attr)
+            for name, (mod, attr) in KERNELS.items()}
 
 
 def reset_launch_counts() -> None:
-    for mod in KERNELS.values():
-        mod.launches = 0
+    for mod, attr in KERNELS.values():
+        setattr(mod, attr, 0)

@@ -25,7 +25,8 @@ CSRC_DIR = PACKAGE_DIR / "csrc"
 BUILD_DIR = PACKAGE_DIR / "build"
 
 # kernel name -> source file under csrc/
-SOURCES = {"corr_lookup_fwd": "corr_lookup_fwd.cu"}
+SOURCES = {"corr_lookup_fwd": "corr_lookup_fwd.cu",
+           "corr_lookup_bwd": "corr_lookup_bwd.cu"}
 
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",

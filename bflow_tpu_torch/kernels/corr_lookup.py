@@ -1,9 +1,10 @@
 """Windowed bilinear correlation lookup, one pyramid level: CUDA kernel
-wrapper and its plain PyTorch version.
+wrappers (forward and backward) and their plain PyTorch versions.
 
-Counterpart of the TPU kernel bflow_tpu/ops/pallas/corr_lookup_v3.py:
-_fwd_kernel. The CUDA source is csrc/corr_lookup_fwd.cu (its header says
-what bounds it and how it is laid out). Layout, per level:
+Counterpart of the TPU kernels bflow_tpu/ops/pallas/corr_lookup_v3.py:
+_fwd_kernel and _bwd_kernel (custom VJP _lookup_cvjp). The CUDA sources
+are csrc/corr_lookup_fwd.cu and csrc/corr_lookup_bwd.cu (their headers say
+what bounds them and how they are laid out). Layout, per level:
 
   vol     (Q, hl, wl)  each query's own correlation map, f32 or bf16
   coords  (Q, 2)       f32 positions in this level's map pixels, (x, y)
@@ -11,7 +12,8 @@ what bounds it and how it is laid out). Layout, per level:
 
 with Q = Tl * N * h1 * w1, the all-pairs volume's own layout. The wrapper
 takes the plain version only for tensors on the CPU; for CUDA tensors it
-launches the kernel or raises.
+launches the kernels (the backward through a torch.autograd.Function) or
+raises.
 """
 
 from __future__ import annotations
@@ -23,10 +25,12 @@ import torch
 from bflow_tpu_torch.ops.sampler import bilinear_sample
 
 NAME = "corr_lookup_fwd"
+BWD_NAME = "corr_lookup_bwd"
 MAX_PATCH = 16  # 2r+2 <= 16, the TPU kernel's limit as well
 
 # kernel launches since the last reset (kernels.reset_launch_counts)
 launches = 0
+bwd_launches = 0
 
 _DTYPES = {torch.float32: "f32", torch.bfloat16: "bf16"}
 _fns = {}
@@ -51,6 +55,25 @@ def corr_lookup_level_plain(vol: torch.Tensor, coords: torch.Tensor,
     return bilinear_sample(vol, pts).to(vol.dtype)
 
 
+def corr_lookup_level_bwd_plain(vol: torch.Tensor, coords: torch.Tensor,
+                                g: torch.Tensor, radius: int):
+    """The lookup's VJP as plain PyTorch: (dvol in vol's type, dcoords f32)
+    for the cotangent g (Q, (2r+1)^2).
+
+    Autograd runs through corr_lookup_level_plain on vol.float(), so the
+    four corners of every tap accumulate in f32 and dvol is rounded once
+    to vol's type (torch.gather's own backward on a bf16 volume would
+    accumulate in bf16): the exact oracle of the backward kernel."""
+    if vol.shape[1] == 0 or vol.shape[2] == 0:  # a pooled-away level
+        return torch.zeros_like(vol), torch.zeros_like(coords)
+    with torch.enable_grad():
+        v = vol.detach().float().requires_grad_(True)
+        c = coords.detach().requires_grad_(True)
+        out = corr_lookup_level_plain(v, c, radius)
+        dv, dc = torch.autograd.grad(out, (v, c), g.float())
+    return dv.to(vol.dtype), dc
+
+
 def _check(vol: torch.Tensor, coords: torch.Tensor, radius: int) -> None:
     if vol.dim() != 3 or coords.dim() != 2 or coords.shape != (
             vol.shape[0], 2):
@@ -69,51 +92,117 @@ def _check(vol: torch.Tensor, coords: torch.Tensor, radius: int) -> None:
                          f"2r+2 <= {MAX_PATCH}, got {radius!r}")
 
 
-def _kernel_fn(dtype: torch.dtype):
-    fn = _fns.get(dtype)
+_ARGTYPES = {
+    # vol, coords, out, n_query, hl, wl, radius, stream
+    NAME: [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+           ctypes.c_longlong, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+           ctypes.c_void_p],
+    # vol, coords, g, dvol, dcoords, n_query, hl, wl, radius, stream
+    BWD_NAME: [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+               ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong,
+               ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p],
+}
+
+
+def _kernel_fn(name: str, dtype: torch.dtype):
+    fn = _fns.get((name, dtype))
     if fn is None:
         from bflow_tpu_torch.kernels import build
 
-        fn = getattr(build.load(NAME), f"{NAME}_{_DTYPES[dtype]}")
-        fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-                       ctypes.c_longlong, ctypes.c_int, ctypes.c_int,
-                       ctypes.c_int, ctypes.c_void_p]
+        fn = getattr(build.load(name), f"{name}_{_DTYPES[dtype]}")
+        fn.argtypes = _ARGTYPES[name]
         fn.restype = ctypes.c_int
-        _fns[dtype] = fn
+        _fns[(name, dtype)] = fn
     return fn
+
+
+def _launch(name: str, dtype: torch.dtype, device: torch.device, *args):
+    fn = _kernel_fn(name, dtype)
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream(device).cuda_stream
+        err = fn(*args, stream)
+    if err != 0:
+        raise RuntimeError(f"{name} launch failed: CUDA error {err}")
+
+
+def _lookup_fwd_cuda(vol: torch.Tensor, coords: torch.Tensor,
+                     radius: int) -> torch.Tensor:
+    global launches
+    win = 2 * radius + 1
+    Q, hl, wl = vol.shape
+    if hl == 0 or wl == 0:  # a pooled-away level: every tap is padding
+        return vol.new_zeros((Q, win * win))
+    out = torch.empty((Q, win * win), dtype=vol.dtype, device=vol.device)
+    _launch(NAME, vol.dtype, vol.device, vol.data_ptr(), coords.data_ptr(),
+            out.data_ptr(), Q, hl, wl, radius)
+    launches += 1
+    return out
+
+
+def lookup_bwd_into(vol: torch.Tensor, coords: torch.Tensor,
+                    g: torch.Tensor, radius: int, dvol, dcoords) -> None:
+    """Launch the backward kernel into dvol (zeroed, vol's shape and
+    type; only each query's in-map patch is written) and dcoords ((Q, 2)
+    f32); either may be None. Contiguous CUDA tensors."""
+    global bwd_launches
+    Q, hl, wl = vol.shape
+    if hl == 0 or wl == 0 or (dvol is None and dcoords is None):
+        return  # a pooled-away level has zero gradients
+    _launch(BWD_NAME, vol.dtype, vol.device, vol.data_ptr(),
+            coords.data_ptr(), g.data_ptr(),
+            None if dvol is None else dvol.data_ptr(),
+            None if dcoords is None else dcoords.data_ptr(),
+            Q, hl, wl, radius)
+    bwd_launches += 1
+
+
+def lookup_bwd_cuda(vol: torch.Tensor, coords: torch.Tensor,
+                    g: torch.Tensor, radius: int, need_vol: bool = True,
+                    need_coords: bool = True):
+    """(dvol or None, dcoords or None) through the backward kernel."""
+    Q = vol.shape[0]
+    win = 2 * radius + 1
+    if g.shape != (Q, win * win):
+        raise ValueError(f"cotangent {tuple(g.shape)}, want {(Q, win * win)}")
+    # the cotangent of the fused convc1 or of the concat path's
+    # permute/cat arrives strided
+    g = g.to(vol.dtype).contiguous()
+    dvol = torch.zeros_like(vol) if need_vol else None
+    dcoords = torch.zeros_like(coords) if need_coords else None
+    lookup_bwd_into(vol, coords, g, radius, dvol, dcoords)
+    return dvol, dcoords
+
+
+class _LookupFn(torch.autograd.Function):
+    """The CUDA lookup with the CUDA backward as its VJP."""
+
+    @staticmethod
+    def forward(ctx, vol, coords, radius):
+        ctx.radius = radius
+        ctx.save_for_backward(vol, coords)
+        return _lookup_fwd_cuda(vol, coords, radius)
+
+    @staticmethod
+    def backward(ctx, g):
+        vol, coords = ctx.saved_tensors
+        need_vol, need_coords = ctx.needs_input_grad[:2]
+        dvol, dcoords = lookup_bwd_cuda(vol, coords, g, ctx.radius,
+                                        need_vol, need_coords)
+        return dvol, dcoords, None
 
 
 def corr_lookup_level(vol: torch.Tensor, coords: torch.Tensor,
                       radius: int) -> torch.Tensor:
     """(Q, hl, wl) volume, (Q, 2) coords -> (Q, (2r+1)^2) taps.
 
-    CUDA tensors go through the hand-written kernel, CPU tensors through
-    corr_lookup_level_plain. Forward only: the backward kernel is not
-    ported yet, so a CUDA call that would need gradients raises."""
-    global launches
+    CUDA tensors go through the hand-written kernels (forward, and the
+    backward kernel under autograd), CPU tensors through
+    corr_lookup_level_plain, whose gradient is torch's own."""
     _check(vol, coords, radius)
     if vol.device.type == "cpu":
         return corr_lookup_level_plain(vol, coords, radius)
     if vol.device.type != "cuda":
         raise ValueError(f"unsupported device {vol.device}")
-    if torch.is_grad_enabled() and (vol.requires_grad
-                                    or coords.requires_grad):
-        raise NotImplementedError(
-            "the lookup backward kernel is not ported yet (ROADMAP "
-            "Queue 2 item 2); run the forward under torch.no_grad()")
     if not (vol.is_contiguous() and coords.is_contiguous()):
         raise ValueError("vol and coords must be contiguous")
-    win = 2 * radius + 1
-    Q, hl, wl = vol.shape
-    if hl == 0 or wl == 0:  # a pooled-away level: every tap is padding
-        return vol.new_zeros((Q, win * win))
-    out = torch.empty((Q, win * win), dtype=vol.dtype, device=vol.device)
-    fn = _kernel_fn(vol.dtype)
-    with torch.cuda.device(vol.device):
-        stream = torch.cuda.current_stream(vol.device).cuda_stream
-        err = fn(vol.data_ptr(), coords.data_ptr(), out.data_ptr(), Q,
-                 hl, wl, radius, stream)
-    if err != 0:
-        raise RuntimeError(f"{NAME} launch failed: CUDA error {err}")
-    launches += 1
-    return out
+    return _LookupFn.apply(vol, coords, radius)

@@ -82,16 +82,28 @@ class GroupNorm(nn.GroupNorm):
 
 
 class BatchNorm(nn.BatchNorm2d):
-    """BatchNorm with running statistics (inference only in this port)."""
+    """BatchNorm as flax's nn.BatchNorm(momentum=0.9) computes it.
+
+    Eval mode normalizes with the running statistics. Train mode
+    normalizes with the batch's biased statistics in f32 and moves the
+    running statistics by momentum 0.1 toward the batch's mean and its
+    *biased* variance, as flax does. (nn.BatchNorm2d's own update would
+    use the unbiased variance, so running_var is updated here by hand.)"""
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        if self.training:
-            raise NotImplementedError(
-                "BatchNorm training statistics are not ported yet "
-                "(ROADMAP Queue 1, training path); call .eval()")
-        return F.batch_norm(x.float(), self.running_mean, self.running_var,
-                            self.weight, self.bias, False, 0.0,
-                            self.eps).to(x.dtype)
+        xf = x.float()
+        if not self.training:
+            return F.batch_norm(xf, self.running_mean, self.running_var,
+                                self.weight, self.bias, False, 0.0,
+                                self.eps).to(x.dtype)
+        with torch.no_grad():
+            var, mean = torch.var_mean(xf, dim=(0, 2, 3), correction=0)
+            m = self.momentum
+            self.running_mean.mul_(1.0 - m).add_(m * mean)
+            self.running_var.mul_(1.0 - m).add_(m * var)
+            self.num_batches_tracked.add_(1)
+        return F.batch_norm(xf, None, None, self.weight, self.bias, True,
+                            0.0, self.eps).to(x.dtype)
 
 
 class InstanceNorm(nn.Module):

@@ -1,7 +1,8 @@
 """RAFT-Spline: recurrent continuous-time flow regression, PyTorch.
 
-Counterpart of bflow_tpu/models/raft_spline.py, inference forward
-(test_mode=True). Inputs keep the JAX layout: the voxel grid is
+Counterpart of bflow_tpu/models/raft_spline.py: the inference forward
+(test_mode=True) and the training forward (test_mode=False, every
+iteration's upsampled prediction). Inputs keep the JAX layout: the voxel grid is
 (N, H, W, nbins_total), the images a (2, N, H, W, 3) stack of the
 reference and target boundary frames; the outputs are BezierCurves with
 params (N, H, W, P, 2). Inside, activations are NCHW.
@@ -10,15 +11,18 @@ Per forward: the encoders and the correlation pyramid run once, then
 ``iters`` refinement steps each evaluate the Bezier curves at the static
 lookup times, look up the correlation windows (one lookup-kernel launch per
 pyramid level) and run the update block; the last step's curves are
-convex-upsampled.
+convex-upsampled (in training, every step's). With ``remat_updates`` the
+update block is recomputed in the backward pass instead of keeping its
+activations (torch.utils.checkpoint), as flax's nn.checkpoint does.
 """
 
 from __future__ import annotations
 
-from typing import List, Optional, Tuple
+from typing import List, Optional, Tuple, Union
 
 import torch
 import torch.nn as nn
+from torch.utils.checkpoint import checkpoint
 
 from bflow_tpu_torch.models.config import RaftSplineConfig
 from bflow_tpu_torch.models.corr import (
@@ -34,7 +38,6 @@ from bflow_tpu_torch.ops.sampler import coords_grid
 # config options of the JAX package that this port does not run yet, with
 # the ROADMAP item that ports them
 _NOT_PORTED = (
-    ("remat_updates", "Queue 1 item 7 (training path)"),
     ("scan_iters", "Queue 1 item 10 (opt-in modes)"),
     ("pallas_stem", "Queue 2 item 4 (stem conv kernel)"),
     ("pallas_conv", "Queue 2 item 5 (3x3 conv kernel)"),
@@ -113,18 +116,23 @@ class RAFTSpline(nn.Module):
         iters: Optional[int] = None,
         flow_init: Optional[BezierCurves] = None,
         test_mode: bool = False,
-    ) -> Tuple[BezierCurves, BezierCurves]:
-        """Returns (final low-res curves, upsampled curves)."""
-        if not test_mode:
-            raise NotImplementedError(
-                "the training forward is not ported yet (ROADMAP Queue 1 "
-                "item 7); call with test_mode=True")
-        with torch.no_grad():
-            return self._infer(voxel_grid, images, iters, flow_init)
+    ) -> Union[Tuple[BezierCurves, BezierCurves], List[BezierCurves]]:
+        """test_mode=True: (final low-res curves, upsampled curves), under
+        torch.no_grad(). test_mode=False: the list of every iteration's
+        upsampled curves, for the sequence loss. BatchNorm statistics
+        follow the module's train()/eval() mode, as flax's ``train``
+        argument does."""
+        if test_mode:
+            with torch.no_grad():
+                return self._run(voxel_grid, images, iters, flow_init,
+                                 test_mode=True)
+        return self._run(voxel_grid, images, iters, flow_init,
+                         test_mode=False)
 
-    def _infer(self, voxel_grid, images, iters, flow_init):
+    def _run(self, voxel_grid, images, iters, flow_init, test_mode):
         cfg = self.config
-        iters = cfg.iters_test if iters is None else iters
+        if iters is None:
+            iters = cfg.iters_test if test_mode else cfg.iters_train
         if iters < 1:
             raise ValueError(f"iters must be positive, got {iters}")
         cdt = compute_dtype_of(cfg)
@@ -188,16 +196,27 @@ class RAFTSpline(nn.Module):
             bezier = bezier.delta_update(flow_init.params)
 
         ts = cfg.lookup_timestamps
-        bezier_up = None
+        remat = cfg.remat_updates and torch.is_grad_enabled()
+        predictions: List[BezierCurves] = []
         for itr in range(iters):
+            if cfg.detach_bezier:
+                bezier = BezierCurves(bezier.params.detach())
             coords1 = coords0[None] + bezier.flow_at(ts)
             corr = corr_lookup(pyramid, coords1, cfg.radius,
                                method=cfg.lookup_method,
                                concat=not cfg.fuse_corr_conv)
-            net, mask, delta = self.update_block(
-                net, inp, corr, bezier_to_channels(bezier))
+            bez_ch = bezier_to_channels(bezier)
+            if remat:
+                net, mask, delta = checkpoint(
+                    self.update_block, net, inp, corr, bez_ch,
+                    use_reentrant=False)
+            else:
+                net, mask, delta = self.update_block(net, inp, corr, bez_ch)
             bezier = bezier.delta_update(
                 channels_to_bezier_delta(delta, cfg.bezier_degree))
-            if itr == iters - 1:
-                bezier_up = bezier.upsampled(mask.permute(0, 2, 3, 1))
-        return bezier, bezier_up
+            if not test_mode or itr == iters - 1:
+                predictions.append(
+                    bezier.upsampled(mask.permute(0, 2, 3, 1)))
+        if test_mode:
+            return bezier, predictions[-1]
+        return predictions

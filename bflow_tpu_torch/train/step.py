@@ -1,0 +1,215 @@
+"""Train and eval steps for both dataset families.
+
+Counterpart of bflow_tpu/train/step.py. One train step: the forward in
+train mode (every refinement iteration's prediction; BatchNorm on batch
+statistics), the sequence loss and the metrics per dataset family,
+backward, the element-wise gradient clamp and AdamW (the optimizer's
+step), and one scheduler step. Metrics stay on the device as
+(value, weight) pairs; ``init_metric_acc`` / ``metric_acc_means``
+accumulate them there and read them back in one transfer, so a train loop
+need not synchronize with the device every step.
+
+Batches use the JAX package's keys and layouts: ``ev_repr`` (N, H, W,
+bins), ``img`` (2, N, H, W, 3), ``flow`` (N, H, W, 2) for DSEC or
+(M, N, H, W, 2) stacked over MultiFlow's M supervision times, and
+``flow_valid`` (N, H, W).
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import Any, Dict, Iterable, Tuple
+
+import torch
+
+from bflow_tpu_torch.ops.bezier import BezierCurves
+from bflow_tpu_torch.utils import metrics as M
+from bflow_tpu_torch.utils.losses import (
+    l1_multi_seq_loss_masked,
+    l1_seq_loss_masked,
+)
+from bflow_tpu_torch.utils.padder import InputPadder
+
+# batch keys (bflow_tpu/data/keys.py:DataLoading)
+EV_REPR, IMG, FLOW, FLOW_VALID = "ev_repr", "img", "flow", "flow_valid"
+
+
+@dataclass(frozen=True)
+class TaskConfig:
+    """Static supervision recipe."""
+
+    dataset: str  # 'dsec' | 'multiflow2d'
+    multi_loss: bool = False
+    # MultiFlow ground-truth supervision timestamps, normalized to [0, 1]
+    supervision_timestamps: Tuple[float, ...] = ()
+    gamma: float = 0.8
+
+    def __post_init__(self):
+        if self.dataset not in ("dsec", "multiflow2d"):
+            raise ValueError(f"unknown dataset {self.dataset!r}")
+        if self.dataset == "multiflow2d" and not self.supervision_timestamps:
+            raise ValueError("multiflow2d needs supervision_timestamps")
+
+
+def _unpack(batch: Dict[str, Any], use_images: bool):
+    voxel = batch.get(EV_REPR)
+    images = batch.get(IMG) if use_images else None
+    return voxel, images, batch[FLOW], batch.get(FLOW_VALID)
+
+
+def grad_norm_tree(model: torch.nn.Module) -> Dict[str, torch.Tensor]:
+    """Mean |grad| per parameter, keyed by its name (the payload of the
+    reference's gradient-magnitude figure); on the device."""
+    return {name: p.grad.detach().abs().mean().float()
+            for name, p in model.named_parameters() if p.grad is not None}
+
+
+def _family_metrics(task: TaskConfig, prefix: str, preds_at, flow, valid
+                    ) -> Dict[str, M.MetricUpdate]:
+    """The metric dict of step.py for one family, from the final
+    prediction: preds_at(t) is its flow at time t."""
+    out: Dict[str, M.MetricUpdate] = {}
+    if task.dataset == "dsec":
+        for k, v in M.single_flow_metrics(preds_at(1.0), flow,
+                                          valid).items():
+            out[f"{prefix}/{k}"] = v
+        return out
+    ts = task.supervision_timestamps
+    targets = [flow[i] for i in range(len(ts))]
+    final = [preds_at(t) for t in ts]
+    for k, v in M.single_flow_metrics(final[-1], targets[-1]).items():
+        out[f"{prefix}/{k}"] = v
+    out[f"{prefix}/epe_multi"] = M.epe_multi(final, targets)
+    out[f"{prefix}/ae_multi"] = M.ae_multi(final, targets)
+    lin = M.predictions_from_lin_assumption(final[-1], ts)
+    out[f"{prefix}/epe_multi_lin"] = M.epe_multi(lin, targets)
+    out[f"{prefix}/ae_multi_lin"] = M.ae_multi(lin, targets)
+    return out
+
+
+def make_loss_fn(model: torch.nn.Module, task: TaskConfig):
+    """loss_fn(batch) -> (loss, metrics): the train-mode forward over
+    cfg.iters_train iterations and the family's sequence loss, as the JAX
+    train step's loss_fn (the metrics are detached)."""
+    cfg = model.config
+
+    def loss_fn(batch):
+        voxel, images, flow, valid = _unpack(batch, cfg.use_images)
+        preds = model(voxel, images, iters=cfg.iters_train, test_mode=False)
+        if task.dataset == "dsec":
+            flows = [p.flow_at(1.0) for p in preds]
+            loss = l1_seq_loss_masked(flows, flow, valid, task.gamma)
+            loss_key = "train/l1_seq_loss"
+        else:
+            ts = task.supervision_timestamps
+            targets = [flow[i] for i in range(len(ts))]
+            flows_it = [[p.flow_at(t) for t in ts] for p in preds]
+            if task.multi_loss:
+                loss = l1_multi_seq_loss_masked(flows_it, targets, None,
+                                                task.gamma)
+                loss_key = "train/l1_multi_seq_loss"
+            else:
+                loss = l1_seq_loss_masked([row[-1] for row in flows_it],
+                                          targets[-1], None, task.gamma)
+                loss_key = "train/l1_seq_loss"
+        with torch.no_grad():
+            last = BezierCurves(preds[-1].params.detach())
+            metrics = {loss_key: (loss.detach(), loss.new_ones(()))}
+            metrics.update(_family_metrics(task, "train", last.flow_at,
+                                           flow, valid))
+        return loss, metrics
+
+    return loss_fn
+
+
+def make_train_step(model: torch.nn.Module, task: TaskConfig,
+                    optimizer: torch.optim.Optimizer, scheduler,
+                    with_grad_norms: bool = False):
+    """train_step(batch, metric_acc=None) runs one step in place on model,
+    optimizer and scheduler. Returns the metrics dict, or with
+    ``metric_acc`` (from init_metric_acc) the accumulator with this
+    step's (value * weight, weight) added, on the device; with
+    ``with_grad_norms`` also grad_norm_tree of the unclamped gradients."""
+    loss_fn = make_loss_fn(model, task)
+
+    def train_step(batch, metric_acc=None):
+        model.train()
+        optimizer.zero_grad(set_to_none=True)
+        loss, metrics = loss_fn(batch)
+        loss.backward()
+        norms = grad_norm_tree(model) if with_grad_norms else None
+        optimizer.step()  # clamps the gradients first (ClampedAdamW)
+        scheduler.step()
+        out = metrics
+        if metric_acc is not None:
+            out = {k: (metric_acc[k][0] + v * w, metric_acc[k][1] + w)
+                   for k, (v, w) in metrics.items()}
+        return (out, norms) if with_grad_norms else out
+
+    return train_step
+
+
+def train_metric_keys(task: TaskConfig) -> Tuple[str, ...]:
+    """The metric keys a train step emits, static per task."""
+    singles = ("epe", "ae", "1pe", "2pe", "3pe")
+    if task.dataset == "dsec":
+        return ("train/l1_seq_loss",) + tuple(f"train/{k}" for k in singles)
+    loss = ("train/l1_multi_seq_loss" if task.multi_loss
+            else "train/l1_seq_loss")
+    return ((loss,) + tuple(f"train/{k}" for k in singles)
+            + ("train/epe_multi", "train/ae_multi", "train/epe_multi_lin",
+               "train/ae_multi_lin"))
+
+
+def init_metric_acc(keys: Iterable[str], device="cuda"
+                    ) -> Dict[str, Tuple[torch.Tensor, torch.Tensor]]:
+    """Zeroed (weighted sum, weight) accumulator on the device."""
+    return {k: (torch.zeros((), device=device),
+                torch.zeros((), device=device)) for k in keys}
+
+
+def metric_acc_means(metric_acc) -> Dict[str, float]:
+    """One host readback -> mean per metric (metrics of zero weight are
+    left out)."""
+    keys = list(metric_acc)
+    if not keys:
+        return {}
+    host = torch.stack([torch.stack([metric_acc[k][0].float(),
+                                     metric_acc[k][1].float()])
+                        for k in keys]).double().cpu()
+    return {k: float(total / weight)
+            for k, (total, weight) in zip(keys, host) if weight > 0}
+
+
+def make_eval_step(model: torch.nn.Module, task: TaskConfig):
+    """eval_step(batch) -> (metrics, prediction (N, H, W, 2) at the last
+    supervision time, low-res Bezier params). The test_mode forward on
+    running BatchNorm statistics; inputs whose size is not a multiple of 8
+    are padded for the forward and the prediction is cropped back."""
+    cfg = model.config
+
+    def eval_step(batch):
+        voxel, images, flow, valid = _unpack(batch, cfg.use_images)
+        ref = voxel if voxel is not None else images[0]
+        H, W = ref.shape[-3], ref.shape[-2]
+        padder = InputPadder()
+        padded = padder.requires_padding(H, W)
+        if padded:
+            voxel = None if voxel is None else padder.pad(voxel)
+            images = None if images is None else padder.pad(images)
+        was_training = model.training
+        model.eval()
+        try:
+            low, up = model(voxel, images, iters=cfg.iters_test,
+                            test_mode=True)
+        finally:
+            model.train(was_training)
+        if padded:
+            p = up.params
+            flat = padder.unpad(p.reshape(*p.shape[:3], -1), H, W)
+            up = BezierCurves(flat.reshape(*flat.shape[:3], *p.shape[3:]))
+        metrics = _family_metrics(task, "val", up.flow_at, flow, valid)
+        ts = (1.0,) if task.dataset == "dsec" else task.supervision_timestamps
+        return metrics, up.flow_at(ts[-1]), low.params
+
+    return eval_step

@@ -114,3 +114,76 @@ def load_jax_variables(model: torch.nn.Module,
     """Load flax variables into a port module in place (strict)."""
     model.load_state_dict(state_dict_from_jax(variables, model.state_dict()))
     return model
+
+
+def _flax_module_path(torch_mod: str) -> Tuple[str, ...]:
+    """torch module path -> flax module path (the inverse of
+    _module_name, without the norm wrapper)."""
+    parts = torch_mod.split(".")
+    out = []
+    i = 0
+    while i < len(parts):
+        m = parts[i]
+        nxt = parts[i + 1] if i + 1 < len(parts) else None
+        if m.startswith("layer") and nxt is not None and nxt.isdigit():
+            out.append(f"{m}_{nxt}")
+            i += 2
+        elif m == "downsample" and nxt in ("0", "1"):
+            out.append("ds_conv" if nxt == "0" else "ds_norm")
+            i += 2
+        elif m == "mask" and nxt is not None and nxt.isdigit():
+            out.append(f"mask_{nxt}")
+            i += 2
+        else:
+            out.append(m)
+            i += 1
+    return tuple(out)
+
+
+def jax_variables_from_state_dict(
+    sd: Mapping[str, torch.Tensor],
+) -> Dict[str, Dict[str, Any]]:
+    """The port's state_dict -> flax variables {'params', 'batch_stats'}
+    as nested dicts of f32 numpy arrays: the inverse of
+    state_dict_from_jax. A norm with running statistics is a BatchNorm,
+    one without a GroupNorm; ``num_batches_tracked`` has no flax
+    counterpart and is dropped."""
+    batch_norms = {k.rsplit(".", 1)[0] for k in sd
+                   if k.endswith(".running_mean")}
+    out: Dict[str, Dict[str, Any]] = {"params": {}, "batch_stats": {}}
+
+    def put(collection, path, value):
+        node = out[collection]
+        for p in path[:-1]:
+            node = node.setdefault(p, {})
+        node[path[-1]] = value
+
+    for key, value in sd.items():
+        mod, leaf = key.rsplit(".", 1)
+        if leaf == "num_batches_tracked":
+            continue
+        arr = value.detach().float().cpu().numpy()
+        path = _flax_module_path(mod)
+        is_norm = path[-1].startswith("norm") or path[-1] == "ds_norm"
+        if is_norm:
+            wrapper = "BatchNorm_0" if mod in batch_norms else "GroupNorm_0"
+            names = {"weight": ("params", "scale"),
+                     "bias": ("params", "bias"),
+                     "running_mean": ("batch_stats", "mean"),
+                     "running_var": ("batch_stats", "var")}
+            if leaf not in names:
+                raise KeyError(f"unknown norm leaf {key}")
+            collection, name = names[leaf]
+            put(collection, path + (wrapper, name), arr)
+        elif leaf == "weight":
+            if arr.ndim != 4:
+                raise ValueError(f"{key} is not OIHW: {arr.shape}")
+            put("params", path + ("kernel",), np.ascontiguousarray(
+                arr.transpose(2, 3, 1, 0)))
+        elif leaf == "bias":
+            put("params", path + ("bias",), arr)
+        else:
+            raise KeyError(f"unknown state_dict leaf {key}")
+    if not out["batch_stats"]:
+        del out["batch_stats"]
+    return out

@@ -4,22 +4,29 @@
     python3 chip_smoke.py [--profile DIR] [--seed N]
 
 Run from the repository root, on a machine with a CUDA GPU and the CUDA
-toolkit (nvcc). Phases, each printing one JSON line:
+toolkit (nvcc). Phases, each printing JSON lines:
 
-  1. device    card name, CUDA version, nvidia-smi name and power limit
-  2. build     nvcc builds every kernel from bflow_tpu_torch/csrc/
-  3. kernel    each kernel against its plain PyTorch version at the
-               flagship shapes (f32 and bf16), with times, bound and the
-               one-call PyTorch yardstick
-  4. forward   the flagship RAFT-Spline inference forward (480x640, B=1,
-               bf16, 12 iterations) through build_model(); launch counts
-               reset before and read after; ms/forward, fields/s, memory
-  5. parity    kernel path vs plain path on the same seeded weights
-  6. kernels   one JSON line summing up every kernel
+  1. device       card name, CUDA version, nvidia-smi name and power limit
+  2. build        nvcc builds every kernel from bflow_tpu_torch/csrc/
+  3. kernel       each kernel (lookup forward, lookup backward) against its
+                  plain PyTorch version at the flagship level shapes (f32
+                  and bf16), with times, bound and the one-call PyTorch
+                  yardstick; yardstick: bounds of the TPU kernels not
+                  ported yet, and F.conv2d at the encoder shapes
+  4. forward      the flagship RAFT-Spline inference forward (480x640, B=1,
+                  bf16, 12 iterations) through build_model(); launch counts
+                  reset before and read after; ms/forward, fields/s, memory
+  5. parity       kernel path vs plain path on the same seeded weights
+  6. train        the DSEC training step (f32, 12 iterations, B=3 at
+                  288x384, AdamW + OneCycle) through make_train_step: 2
+                  warm-up + 5 timed steps on one batch, launches per step,
+                  loss per step, memory; then one bf16 flagship step
+  7. train_parity kernel path vs gather path, loss and gradients of a step
+  8. kernels      one JSON line summing up every kernel
 and, as the last line, {"ok": true, "device": {...}}. Any failure exits
 nonzero before that line; so does a machine without CUDA. --profile DIR
-adds a torch.profiler breakdown of one forward (top kernels by device
-time) and writes its chrome trace into DIR.
+adds a torch.profiler breakdown of one forward and one train step (kernels
+by device time, idle share) and writes their chrome traces into DIR.
 """
 
 from __future__ import annotations
@@ -49,7 +56,17 @@ LEVELS = [(5, 60, 80), (2, 30, 40), (2, 15, 20), (2, 7, 10)]
 RADIUS = 4
 ITERS = 12
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
+BF16_FLOPS = 989e12  # H100 SXM dense bf16 tensor-core peak
+# the DSEC training step: global batch 3 at the 288x384 training crop
+TRAIN_B, TRAIN_H, TRAIN_W = 3, 288, 384
+TRAINING = {"learning_rate": 1e-4, "weight_decay": 1e-4,
+            "gradient_clip_val": 1,
+            "lr_scheduler": {"use": True, "total_steps": 250000,
+                             "pct_start": 0.01}}
 TOL = {torch.float32: 1e-5, torch.bfloat16: 1e-2}  # of max |plain|
+# backward, (dvol, dcoords), of max |plain|: dcoords sums 81 taps in
+# another order than autograd does
+BWD_TOL = {torch.float32: (1e-5, 1e-4), torch.bfloat16: (1e-2, 1e-2)}
 SPIN_CYCLES = 5_000_000  # ~2.5 ms of device time at H100 clocks
 
 
@@ -143,16 +160,22 @@ def lookup_bound_bytes(vol: torch.Tensor, coords: torch.Tensor,
     return int(patch * item + Q * 8 + Q * (2 * radius + 1) ** 2 * item)
 
 
-def grid_sample_call(vol: torch.Tensor, coords: torch.Tensor, radius: int):
-    """The one PyTorch call computing the same function (yardstick only):
-    grid_sample on (Q, 1, hl, wl) with a normalized (Q, 9, 9, 2) grid."""
+def _sample_grid(vol: torch.Tensor, coords: torch.Tensor, radius: int):
+    """grid_sample's (Q, 1, hl, wl) input view and normalized
+    (Q, 2r+1, 2r+1, 2) grid for the lookup's taps (yardsticks only)."""
     Q, hl, wl = vol.shape
     pts = coords[:, None, :] + klookup.window_offsets(radius, vol.device)
     win = 2 * radius + 1
     grid = torch.stack([2.0 * pts[..., 0] / (wl - 1) - 1.0,
                         2.0 * pts[..., 1] / (hl - 1) - 1.0], dim=-1)
-    grid = grid.reshape(Q, win, win, 2).to(vol.dtype)
-    inp = vol.reshape(Q, 1, hl, wl)
+    return vol.reshape(Q, 1, hl, wl), grid.reshape(Q, win, win, 2).to(
+        vol.dtype)
+
+
+def grid_sample_call(vol: torch.Tensor, coords: torch.Tensor, radius: int):
+    """The one PyTorch call computing the same function (yardstick only):
+    grid_sample on (Q, 1, hl, wl) with a normalized (Q, 9, 9, 2) grid."""
+    inp, grid = _sample_grid(vol, coords, radius)
     return lambda: F.grid_sample(inp, grid, mode="bilinear",
                                  padding_mode="zeros", align_corners=True)
 
@@ -196,6 +219,84 @@ def check_lookup_level(Tl, hl, wl, dtype, seed, timing=True):
     return rec
 
 
+def lookup_bwd_bound_bytes(vol: torch.Tensor, coords: torch.Tensor,
+                           radius: int) -> int:
+    """Bytes the lookup's VJP must move for these inputs: per query its
+    cotangents, coords and dcoords, and the part of its (2r+2)^2 patch
+    inside the map, read from vol and written to dvol."""
+    Q = vol.shape[0]
+    item = vol.element_size()
+    fwd = lookup_bound_bytes(vol, coords, radius)  # patch + coords + taps
+    patch = fwd - Q * 8 - Q * (2 * radius + 1) ** 2 * item
+    return int(2 * patch + Q * 16 + Q * (2 * radius + 1) ** 2 * item)
+
+
+def grid_sample_vjp_call(vol: torch.Tensor, coords: torch.Tensor,
+                         g: torch.Tensor, radius: int):
+    """The one PyTorch call computing the same VJP (yardstick only):
+    torch.autograd.grad of grid_sample on (input, grid), graph built
+    once; its backward zero-fills the input gradient itself."""
+    inp, grid = _sample_grid(vol.detach(), coords, radius)
+    inp, grid = inp.requires_grad_(True), grid.requires_grad_(True)
+    out = F.grid_sample(inp, grid, mode="bilinear", padding_mode="zeros",
+                        align_corners=True)
+    gout = g.reshape(out.shape).to(out.dtype)
+    return lambda: torch.autograd.grad(out, (inp, grid), gout,
+                                       retain_graph=True)
+
+
+def check_lookup_bwd_level(Tl, hl, wl, dtype, seed, timing=True):
+    """Backward kernel vs its plain twin at one level shape, two calls
+    bitwise equal; returns the phase-3b record."""
+    vol, coords = level_inputs(Tl, hl, wl, dtype, seed)
+    gen = torch.Generator(device="cuda").manual_seed(seed + 100)
+    Q = vol.shape[0]
+    g = torch.randn(Q, (2 * RADIUS + 1) ** 2, generator=gen,
+                    device="cuda").to(dtype)
+    dv, dc = klookup.lookup_bwd_cuda(vol, coords, g, RADIUS)
+    dv2, dc2 = klookup.lookup_bwd_cuda(vol, coords, g, RADIUS)
+    torch.cuda.synchronize()
+    want_v, want_c = klookup.corr_lookup_level_bwd_plain(vol, coords, g,
+                                                         RADIUS)
+    check(dv.dtype == want_v.dtype == dtype and dc.dtype == torch.float32,
+          f"lookup bwd types {dv.dtype} {dc.dtype}")
+    tol_v, tol_c = BWD_TOL[dtype]
+    err_v = (dv.float() - want_v.float()).abs().max().item()
+    ref_v = want_v.float().abs().max().item()
+    err_c = (dc - want_c).abs().max().item()
+    ref_c = want_c.abs().max().item()
+    repeat = bool(torch.equal(dv, dv2) and torch.equal(dc, dc2))
+    rec = {"Tl": Tl, "hl": hl, "wl": wl, "queries": Q,
+           "dtype": str(dtype).replace("torch.", ""),
+           "dvol_max_abs_err": err_v, "dvol_max_abs_ref": ref_v,
+           "dcoords_max_abs_err": err_c, "dcoords_max_abs_ref": ref_c,
+           "tol_rel": [tol_v, tol_c], "bitwise_repeatable": repeat,
+           "ok": (err_v <= tol_v * ref_v and err_c <= tol_c * ref_c
+                  and repeat)}
+    if not timing:
+        return rec
+    bound_bytes = lookup_bwd_bound_bytes(vol, coords, RADIUS)
+    rec.update(
+        ms=time_ms(lambda: klookup.lookup_bwd_into(vol, coords, g, RADIUS,
+                                                   dv, dc)),
+        zero_ms=time_ms(lambda: dv.zero_()),
+        plain_ms=time_ms(lambda: klookup.corr_lookup_level_bwd_plain(
+            vol, coords, g, RADIUS)),
+        bound_bytes=bound_bytes,
+        bound_ms=bound_bytes / HBM_BYTES_PER_S * 1e3,
+    )
+    try:
+        lib = grid_sample_vjp_call(vol, coords, g, RADIUS)
+        lib()
+        rec["library_dtype"] = rec["dtype"]
+    except RuntimeError as exc:  # a yardstick only: time it in f32
+        rec["library_note"] = f"grid_sample VJP refused {dtype}: {exc}"[:200]
+        lib = grid_sample_vjp_call(vol.float(), coords, g.float(), RADIUS)
+        rec["library_dtype"] = "float32"
+    rec["library_ms"] = time_ms(lib)
+    return rec
+
+
 # ---------------------------------------------------------------------------
 # phases 4 and 5: the model
 
@@ -220,36 +321,49 @@ def rel_diff(a: torch.Tensor, b: torch.Tensor) -> float:
     return ((a - b).abs().max() / b.abs().max().clamp(min=1e-12)).item()
 
 
-def damped_pair(cfg, seed):
-    """The same seeded weights, Bezier head damped x0.02 (a trained-like
-    contractive recurrence), as a kernel-path and a plain-path model."""
-    kern = bt.build_model(dataclasses.replace(cfg, lookup_method="pallas"),
-                          "cuda", seed)
+def damp_head(model):
+    """Scale the Bezier head's last weight by 0.02: with it the random-init
+    recurrence is contractive, as a trained one is; without it, flows
+    reach hundreds of pixels within 12 iterations."""
     with torch.no_grad():
-        kern.update_block.bezier_head.conv2.weight.mul_(0.02)
+        model.update_block.bezier_head.conv2.weight.mul_(0.02)
+    return model
+
+
+def damped_pair(cfg, seed):
+    """The same seeded weights, Bezier head damped (damp_head), as a
+    kernel-path and a plain-path model."""
+    kern = damp_head(bt.build_model(
+        dataclasses.replace(cfg, lookup_method="pallas"), "cuda", seed))
     plain = bt.build_model(dataclasses.replace(cfg, lookup_method="gather"),
                            "cuda", seed)
     plain.load_state_dict(kern.state_dict())
     return kern, plain
 
 
-def profile_forward(model, voxel, images, unprofiled_ms: float,
-                    out_dir: str) -> None:
-    """Kernel time by name over one forward; the idle share is 1 - the
-    summed kernel time over the unprofiled forward time."""
+def profile_run(fn, unprofiled_ms: float, out_dir: str, name: str,
+                vol_shapes=()):
+    """torch.profiler over one fn() (after one unprofiled warm call):
+    device kernel time by name, the chrome trace written into out_dir.
+    The idle share is 1 - summed kernel time over the unprofiled time.
+    With vol_shapes (the (Q, hl, wl) lookup volumes), also the device time
+    of the fills (zeroing the dVol buffers) and of the adds (autograd
+    summing the per-iteration dVols) on tensors of those shapes."""
     from pathlib import Path
 
     from torch.profiler import ProfilerActivity, profile
 
-    run_forward(model, voxel, images)
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 record_shapes=bool(vol_shapes)) as prof:
         t0 = time.perf_counter()
-        run_forward(model, voxel, images)
+        fn()
+        torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
     out = Path(out_dir)
     out.mkdir(parents=True, exist_ok=True)
-    prof.export_chrome_trace(str(out / "forward_trace.json"))
+    prof.export_chrome_trace(str(out / f"{name}_trace.json"))
     # device kernels only (the aten ops above them carry the same time)
     rows = []
     for evt in prof.key_averages():
@@ -260,14 +374,168 @@ def profile_forward(model, voxel, images, unprofiled_ms: float,
         rows.append((dev_us, evt.key, evt.count))
     rows.sort(reverse=True)
     kernel_ms = sum(r[0] for r in rows) / 1e3
-    lookup = [r for r in rows if "corr_lookup_fwd" in r[1]]
-    emit("profile", profiled_wall_ms=wall_ms, kernel_ms=kernel_ms,
-         device_calls=sum(r[2] for r in rows), unprofiled_ms=unprofiled_ms,
-         device_idle_share=max(0.0, 1 - kernel_ms / unprofiled_ms),
-         lookup_kernel_ms=sum(r[0] for r in lookup) / 1e3,
-         lookup_kernel_calls=sum(r[2] for r in lookup),
-         top=[{"name": k[:100], "device_ms": us / 1e3, "calls": n}
-              for us, k, n in rows[:25]])
+
+    def share(*needles):
+        sel = [r for r in rows if any(n in r[1] for n in needles)]
+        return {"device_ms": sum(r[0] for r in sel) / 1e3,
+                "calls": sum(r[2] for r in sel)}
+
+    by_op = {}
+    if vol_shapes:
+        want = [list(v) for v in vol_shapes]
+        for evt in prof.key_averages(group_by_input_shape=True):
+            shapes = evt.input_shapes or [[]]
+            kind = {"aten::fill_": "dvol_zero", "aten::add": "dvol_sum",
+                    "aten::add_": "dvol_sum"}.get(evt.key)
+            if kind and list(shapes[0]) in want:
+                dev_us = getattr(evt, "device_time_total",
+                                 getattr(evt, "cuda_time_total", 0.0))
+                rec = by_op.setdefault(kind, {"device_ms": 0.0, "calls": 0})
+                rec["device_ms"] += dev_us / 1e3
+                rec["calls"] += evt.count
+    return {"profiled_wall_ms": wall_ms, "kernel_ms": kernel_ms, **by_op,
+            "device_calls": sum(r[2] for r in rows),
+            "unprofiled_ms": unprofiled_ms,
+            "device_idle_share": max(0.0, 1 - kernel_ms / unprofiled_ms),
+            "lookup_fwd": share(klookup.NAME),
+            "lookup_bwd": share(klookup.BWD_NAME),
+            "memset_and_fill": share("Memset", "memset", "FillFunctor"),
+            "add": share("AddFunctor", "CUDAFunctor_add"),
+            "top": [{"name": k[:100], "device_ms": us / 1e3, "calls": n}
+                    for us, k, n in rows[:25]]}
+
+
+# ---------------------------------------------------------------------------
+# the train phase: the DSEC training step at full width
+
+
+def train_config():
+    """The flagship as the DSEC experiment E_I_LU4_BD2_lowpyramid trains
+    it: f32 correlation and compute (config/model/raft_base.yaml), 12
+    iterations, everything else the flagship's."""
+    return dataclasses.replace(bt.flagship_config(),
+                               corr_precision="float32",
+                               compute_dtype="float32")
+
+
+def train_batch(seed: int, device="cuda"):
+    """A seeded synthetic DSEC batch in the layouts of the JAX train step:
+    B=3 at the 288x384 training crop, a few pixels of flow, 90% valid."""
+    rng = np.random.default_rng(seed)
+    cfg = train_config()
+    b = {
+        "ev_repr": rng.standard_normal(
+            (TRAIN_B, TRAIN_H, TRAIN_W, cfg.nbins_total)).astype(np.float32),
+        "img": rng.integers(0, 255, (2, TRAIN_B, TRAIN_H, TRAIN_W, 3)
+                            ).astype(np.float32),
+        "flow": (3.0 * rng.standard_normal((TRAIN_B, TRAIN_H, TRAIN_W, 2))
+                 ).astype(np.float32),
+        "flow_valid": rng.random((TRAIN_B, TRAIN_H, TRAIN_W)) < 0.9,
+    }
+    return {k: torch.from_numpy(v).to(device) for k, v in b.items()}
+
+
+def build_corr_pyramid_shapes(cfg):
+    """The lookup volumes of the train batch, per level, in both views:
+    (Q, hl, wl) as the lookup takes them (the dVol buffers are zeroed in
+    this shape) and (Tl, N, h1, w1, hl, wl) as the pyramid holds them
+    (autograd sums the 12 iterations' dVols in this one)."""
+    from bflow_tpu_torch.models.corr import level_target_indices
+
+    h, w = TRAIN_H // 8, TRAIN_W // 8
+    shapes = []
+    for lvl, idx in enumerate(level_target_indices(cfg.levels_per_target)):
+        hl, wl = h >> lvl, w >> lvl
+        shapes.append((len(idx) * TRAIN_B * h * w, hl, wl))
+        shapes.append((len(idx), TRAIN_B, h, w, hl, wl))
+    return shapes
+
+
+def grads_finite(model) -> bool:
+    return bool(torch.stack([torch.isfinite(p.grad).all()
+                             for p in model.parameters()
+                             if p.grad is not None]).all())
+
+
+def train_parity(cfg, batch, seed, damp: bool):
+    """Kernel path vs gather path from the same weights: loss and every
+    parameter's gradient of one train-mode forward/backward."""
+    from bflow_tpu_torch.train.step import TaskConfig, make_loss_fn
+
+    out = []
+    # deterministic cuDNN algorithms: the default ones may sum with
+    # atomics, and their run-to-run spread (7e-5 of a weight gradient's
+    # max, f32) would sit at the bound
+    torch.backends.cudnn.deterministic = True
+    for method in ("pallas", "gather", "gather"):
+        model = bt.build_model(dataclasses.replace(cfg, lookup_method=method),
+                               "cuda", seed).train()
+        if damp:
+            damp_head(model)
+        loss, _ = make_loss_fn(model, TaskConfig("dsec"))(batch)
+        loss.backward()
+        out.append((loss.item(), {k: p.grad for k, p in
+                                  model.named_parameters()}))
+        del model
+    torch.backends.cudnn.deterministic = False
+    (lk, gk), (lp, gp), (_, gp2) = out
+    # each gradient against its own max |grad|, or 1e-2 of the model's
+    # largest where that is larger: conv biases in front of a norm have
+    # gradient 0 in exact arithmetic and hold round-off on both paths
+    # (fnet_img.conv1.bias: 9e-5 of its own max between two gather runs)
+    gmax = max(g.abs().max().item() for g in gp.values())
+
+    def worst(ga):
+        return max(((ga[k] - gp[k]).abs().max().item()
+                    / max(gp[k].abs().max().item(), 1e-2 * gmax), k)
+                   for k in gp)
+
+    # the gather path's own run-to-run spread (its backward scatters with
+    # atomics), as the floor of what the comparison can resolve
+    return abs(lk - lp) / abs(lp), worst(gk), worst(gp2)
+
+
+def conv_yardstick(what, N, cin, H, W, cout, k, stride):
+    """F.conv2d in bf16 (the one PyTorch call computing what the TPU conv
+    kernels compute: odd-window SAME conv plus bias) at an encoder shape,
+    with its bound: the larger of FLOPs over the bf16 peak and bytes over
+    the memory rate."""
+    gen = torch.Generator(device="cuda").manual_seed(N * cin + k)
+    x = torch.randn(N, cin, H, W, generator=gen, device="cuda").bfloat16()
+    w = (0.05 * torch.randn(cout, cin, k, k, generator=gen, device="cuda")
+         ).bfloat16()
+    b = torch.zeros(cout, device="cuda", dtype=torch.bfloat16)
+    pad = k // 2
+    ho, wo = (H + 2 * pad - k) // stride + 1, (W + 2 * pad - k) // stride + 1
+    flops = 2 * N * ho * wo * cout * cin * k * k
+    nbytes = 2 * (x.numel() + w.numel() + b.numel() + N * cout * ho * wo)
+    bound_ms = max(flops / BF16_FLOPS, nbytes / HBM_BYTES_PER_S) * 1e3
+    return {"what": what, "shape": [N, cin, H, W], "cout": cout, "k": k,
+            "stride": stride, "flops": flops, "bytes": nbytes,
+            "bound_ms": bound_ms,
+            "bound_by": ("operations" if flops / BF16_FLOPS
+                         > nbytes / HBM_BYTES_PER_S else "bytes"),
+            "library_ms": time_ms(lambda: F.conv2d(x, w, b, stride, pad))}
+
+
+def q8_lookup_bound(seed: int):
+    """Bytes bound of the int8 lookup forward (TPU kernel row 2) at the
+    flagship level shapes: levels whose padded height is >= 32 read an
+    int8 patch and one f32 scale per (target, batch, query row), the
+    others their bf16 patch (bflow_tpu/models/corr.py: pallas_q8);
+    outputs bf16."""
+    total = 0
+    for lvl, (Tl, hl, wl) in enumerate(LEVELS):
+        vol, coords = level_inputs(Tl, hl, wl, torch.bfloat16, seed + lvl)
+        Q = vol.shape[0]
+        fwd = lookup_bound_bytes(vol, coords, RADIUS)  # bf16 patch
+        taps = Q * (2 * RADIUS + 1) ** 2 * 2
+        patch_bf16 = fwd - Q * 8 - taps
+        if -(-hl // 16) * 16 >= 32:
+            total += patch_bf16 // 2 + Tl * H1 * 4 + Q * 8 + taps
+        else:
+            total += fwd
+    return total, total / HBM_BYTES_PER_S * 1e3
 
 
 # ---------------------------------------------------------------------------
@@ -277,7 +545,8 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--profile", metavar="DIR",
-                    help="profile one forward, write its trace into DIR")
+                    help="profile one forward and one train step, write "
+                         "their traces into DIR")
     args = ap.parse_args()
 
     # 1. device
@@ -301,11 +570,11 @@ def main() -> int:
     t0 = time.perf_counter()
     report = kbuild.build()
     emit("build", seconds=time.perf_counter() - t0,
-         kernels={k: {"seconds": v["seconds"], "ptxas": v["ptxas"][-600:]}
+         kernels={k: {"seconds": v["seconds"], "ptxas": v["ptxas"][-900:]}
                   for k, v in report.items()})
 
-    # 3. kernel vs plain at the flagship level shapes
-    per_level = []
+    # 3. each kernel vs its plain version at the flagship level shapes
+    per_level, per_level_bwd = [], []
     for dtype in (torch.float32, torch.bfloat16):
         for lvl, (Tl, hl, wl) in enumerate(LEVELS):
             rec = check_lookup_level(Tl, hl, wl, dtype, args.seed + lvl)
@@ -313,6 +582,32 @@ def main() -> int:
             emit("kernel", name=klookup.NAME, **rec)
             check(rec["ok"], f"lookup kernel disagrees: {rec}")
             per_level.append(rec)
+    for dtype in (torch.float32, torch.bfloat16):
+        for lvl, (Tl, hl, wl) in enumerate(LEVELS):
+            rec = check_lookup_bwd_level(Tl, hl, wl, dtype, args.seed + lvl)
+            rec["level"] = lvl
+            emit("kernel", name=klookup.BWD_NAME, **rec)
+            check(rec["ok"], f"lookup backward kernel disagrees: {rec}")
+            per_level_bwd.append(rec)
+
+    # 3c. yardsticks and bounds of the TPU kernels not ported yet
+    q8_bytes, q8_ms = q8_lookup_bound(args.seed)
+    emit("yardstick", row=2, kernel="corr_lookup_v3.py _fwd_kernel quant",
+         bound_bytes=q8_bytes, bound_ms=q8_ms, bound_by="bytes")
+    # (TPU kernel row, what, N, C in, H, W, C out, window, stride):
+    # fnet_ev runs the five 15-bin slices as one batch of 5, cnet the 15
+    # context bins and the frame
+    convs = [
+        (5, "fnet_ev stem 7x7/s2", 5, 15, H, W, 64, 7, 2),
+        (5, "cnet stem 7x7/s2", 1, 18, H, W, 64, 7, 2),
+        (5, "fnet_ev layer2_0.conv1 3x3/s2", 5, 64, H // 2, W // 2, 96, 3,
+         2),
+        (6, "fnet_ev layer1 3x3", 5, 64, H // 2, W // 2, 64, 3, 1),
+        (6, "fnet_ev layer2 3x3", 5, 96, H // 4, W // 4, 96, 3, 1),
+        (6, "fnet_ev layer3 3x3", 5, 128, H // 8, W // 8, 128, 3, 1),
+    ]
+    for row, what, *shape in convs:
+        emit("yardstick", row=row, **conv_yardstick(what, *shape))
 
     # 4. the flagship forward through the kernel
     cfg = bt.flagship_config()
@@ -347,8 +642,11 @@ def main() -> int:
     check(per_fwd[klookup.NAME] == want,
           f"{klookup.NAME}: {per_fwd[klookup.NAME]} launches per forward, "
           f"want {want}")
+    check(per_fwd[klookup.BWD_NAME] == 0, "backward kernel in inference")
     if args.profile:
-        profile_forward(model, voxel, images, ms, args.profile)
+        emit("profile", path="forward", **profile_run(
+            lambda: run_forward(model, voxel, images), ms, args.profile,
+            "forward"))
     del model
 
     # 5. kernel path vs plain path on the card
@@ -366,22 +664,128 @@ def main() -> int:
         check(all(v < bound for v in rel.values()),
               f"kernel path vs plain path {precision}: {rel}")
         del kern, plain
+    del voxel, images
 
-    # 6. kernels line: one lookup launch per level, so the per-iteration
-    # cost is the sum over the four bf16 level records
-    bf16 = [r for r in per_level if r["dtype"] == "bfloat16"]
+    # 6. the DSEC training step: f32, 12 iterations, B=3 at 288x384
+    from bflow_tpu_torch.train import TaskConfig, TrainState, make_train_step
+
+    tcfg = train_config()
+    batch = train_batch(args.seed)
+    # damped head: undamped, the random-init loss rises over the 7 steps
+    model = damp_head(bt.build_model(tcfg, device="cuda", seed=args.seed))
+    state = TrainState.create(model, TRAINING)
+    task = TaskConfig("dsec")
+    step = make_train_step(model, task, state.optimizer, state.scheduler)
+    stats0 = {k: v.clone() for k, v in model.cnet.state_dict().items()
+              if "running" in k}
+    warmup, timed = 2, 5
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launch_counts()
+    losses, times, finite = [], [], True
+    for i in range(warmup + timed):
+        t0 = time.perf_counter()
+        metrics = step(batch)
+        torch.cuda.synchronize()
+        if i >= warmup:
+            times.append((time.perf_counter() - t0) * 1e3)
+        losses.append(metrics["train/l1_seq_loss"][0].item())
+        finite = finite and grads_finite(model)
+    train_counts = kernels.launch_counts()
+    n_steps = warmup + timed
+    per_step = {k: v / n_steps for k, v in train_counts.items()}
+    train_ms = statistics.median(times)
+    moved = max((v - stats0[k]).abs().max().item()
+                for k, v in model.cnet.state_dict().items() if k in stats0)
+    emit("train", config="flagship E_I_LU4_BD2 f32 fuse_corr_conv, "
+                         "damped head",
+         batch=TRAIN_B, height=TRAIN_H, width=TRAIN_W, iters=tcfg.iters_train,
+         steps=n_steps, ms_per_step=train_ms, ms_all=times,
+         samples_per_s=TRAIN_B * 1e3 / train_ms,
+         max_memory_allocated=torch.cuda.max_memory_allocated(),
+         launches=train_counts, launches_per_step=per_step, losses=losses,
+         lr=state.optimizer.param_groups[0]["lr"], grads_finite=finite,
+         cnet_running_stats_moved=moved)
+    want = len(LEVELS) * tcfg.iters_train
+    for name in (klookup.NAME, klookup.BWD_NAME):
+        check(per_step[name] == want,
+              f"{name}: {per_step[name]} launches per step, want {want}")
+    check(all(np.isfinite(losses)) and finite, f"non-finite: {losses}")
+    check(losses[-1] < losses[0], f"loss did not fall: {losses}")
+    check(moved > 0, "cnet BatchNorm statistics did not move")
+    if args.profile:
+        levels = build_corr_pyramid_shapes(tcfg)
+        emit("profile", path="train_step", **profile_run(
+            lambda: step(batch), train_ms, args.profile, "train_step",
+            vol_shapes=levels))
+    del model, state, step
+
+    # 6b. one bf16 flagship step
+    model = damp_head(bt.build_model(bt.flagship_config(), device="cuda",
+                                     seed=args.seed))
+    state = TrainState.create(model, TRAINING)
+    step = make_train_step(model, task, state.optimizer, state.scheduler)
+    kernels.reset_launch_counts()
+    metrics = step(batch)
+    torch.cuda.synchronize()
+    bf16_counts = kernels.launch_counts()
+    bf16_loss = metrics["train/l1_seq_loss"][0].item()
+    emit("train_bf16", loss=bf16_loss, launches=bf16_counts,
+         grads_finite=grads_finite(model))
+    check(np.isfinite(bf16_loss) and grads_finite(model), "bf16 step")
+    check(all(bf16_counts[n] == want for n in (klookup.NAME,
+                                               klookup.BWD_NAME)),
+          f"bf16 step launches {bf16_counts}")
+    del model, state, step
+
+    # 7. train parity: kernel path vs gather path, one step's gradients
+    for precision, iters, damp, bound in (("float32", 2, False, 1e-4),
+                                          ("bfloat16", ITERS, True, 5e-2)):
+        c = dataclasses.replace(tcfg, corr_precision=precision,
+                                compute_dtype=precision, iters_train=iters)
+        loss_rel, (grad_rel, where), (floor, _) = train_parity(
+            c, batch, args.seed, damp)
+        loss_bound = 1e-5 if precision == "float32" else bound
+        emit("train_parity", precision=precision, iters=iters,
+             loss_rel=loss_rel, grad_rel_max=grad_rel, worst_param=where,
+             gather_repeat_grad_rel_max=floor,
+             bounds={"loss": loss_bound, "grad": bound})
+        check(loss_rel <= loss_bound and grad_rel <= bound,
+              f"train parity {precision}: {loss_rel} {grad_rel}")
+
+    # 8. kernels line: one launch of each kernel per level, so the
+    # per-iteration cost is the sum over the four bf16 level records
+    def bf16_sum(recs, key):
+        return sum(r[key] for r in recs if r["dtype"] == "bfloat16")
+
     summary = [{
         "name": klookup.NAME,
         "route": "cuda",
         "source": "bflow_tpu_torch/csrc/corr_lookup_fwd.cu",
         "replaces": "bflow_tpu/ops/pallas/corr_lookup_v3.py:238",
         "launches": counts[klookup.NAME],
+        "launches_train": train_counts[klookup.NAME],
         "max_abs_err": max(r["max_abs_err"] for r in per_level),
-        "ms": sum(r["ms"] for r in bf16),
-        "plain_ms": sum(r["plain_ms"] for r in bf16),
-        "bound_ms": sum(r["bound_ms"] for r in bf16),
+        "ms": bf16_sum(per_level, "ms"),
+        "plain_ms": bf16_sum(per_level, "plain_ms"),
+        "bound_ms": bf16_sum(per_level, "bound_ms"),
         "bound_by": "bytes",
-        "library_ms": sum(r["library_ms"] for r in bf16),
+        "library_ms": bf16_sum(per_level, "library_ms"),
+    }, {
+        "name": klookup.BWD_NAME,
+        "route": "cuda",
+        "source": "bflow_tpu_torch/csrc/corr_lookup_bwd.cu",
+        "replaces": "bflow_tpu/ops/pallas/corr_lookup_v3.py:542",
+        "launches": train_counts[klookup.BWD_NAME],
+        "max_abs_err": max(max(r["dvol_max_abs_err"],
+                               r["dcoords_max_abs_err"])
+                           for r in per_level_bwd),
+        "ms": bf16_sum(per_level_bwd, "ms"),
+        "zero_ms": bf16_sum(per_level_bwd, "zero_ms"),
+        "plain_ms": bf16_sum(per_level_bwd, "plain_ms"),
+        "bound_ms": bf16_sum(per_level_bwd, "bound_ms"),
+        "bound_by": "bytes",
+        "library_ms": bf16_sum(per_level_bwd, "library_ms"),
     }]
     print(json.dumps({"kernels": summary}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -209,3 +209,27 @@ def test_corr_lookup_refuses_unported_methods():
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         tcorr.corr_lookup([], torch.zeros(1, 1, 2, 2, 2), 4,
                           method="onehot")
+
+
+# the v6 forward (_fwd_kernel_v6, selected by BFLOW_LOOKUP_V6=1, read at
+# call time) in interpret mode against the port's plain lookup: map widths
+# that are multiples of 16 and ones that are not
+V6_CASES = [
+    (1, 1, 4, 8, 30, 32, 4),
+    (2, 1, 3, 8, 16, 16, 3),
+    (2, 1, 6, 16, 30, 18, 4),
+    (1, 2, 5, 10, 16, 9, 2),
+]
+
+
+@pytest.mark.parametrize("far", [False, True])
+@pytest.mark.parametrize("case", V6_CASES)
+def test_plain_lookup_matches_pallas_v6_interpret(case, far, monkeypatch):
+    monkeypatch.setenv("BFLOW_LOOKUP_V6", "1")
+    T, N, h1, w1, hl, wl, r = case
+    vol, coords = _lookup_case(9, T, N, h1, w1, hl, wl, far)
+    got = _port_lookup(klookup.corr_lookup_level_plain, vol, coords, r)
+    want = np.asarray(lookup_level_slab(
+        to_slab(jnp.asarray(_pad_rows16(vol))), jnp.asarray(coords), r,
+        True))
+    np.testing.assert_allclose(got, want, rtol=1e-4, atol=1e-5)

@@ -1,7 +1,7 @@
 """Guards of the port: it imports no JAX and nothing of bflow_tpu, its
 entry points refuse to fall back to the CPU, its weights bridge round-trips
-through the JAX package's importer, and (on a GPU only) its CUDA kernel
-matches its plain version at the flagship shapes.
+through the JAX package's importer, and (on a GPU only) its CUDA kernels
+match their plain versions at the flagship shapes.
 
 JAX is imported inside the tests that use it, so that the GPU tests run on
 a machine without JAX:
@@ -130,6 +130,23 @@ def test_weights_match_port_state_dict(jax_variables):
                                   w.transpose(3, 2, 0, 1))
 
 
+def test_weights_export_inverts_the_bridge(jax_variables):
+    """jax_variables_from_state_dict undoes state_dict_from_jax, batch
+    statistics included (the train tests read mutated statistics back
+    out this way)."""
+    import jax
+
+    from bflow_tpu_torch.weights import jax_variables_from_state_dict
+
+    variables, _, _ = jax_variables
+    back = jax_variables_from_state_dict(state_dict_from_jax(variables))
+    flat_v = jax.tree_util.tree_leaves_with_path(variables)
+    flat_b = dict(jax.tree_util.tree_leaves_with_path(back))
+    assert len(flat_v) == len(flat_b)
+    for path, value in flat_v:
+        np.testing.assert_array_equal(flat_b[path], value, err_msg=str(path))
+
+
 @pytest.mark.parametrize("fault", ["unknown_leaf", "missing", "shape",
                                    "stray_collection"])
 def test_weights_bridge_is_strict(jax_variables, fault):
@@ -179,10 +196,45 @@ def test_lookup_kernel_matches_plain_on_gpu(cuda_device, dtype, level):
 
 
 @pytest.mark.cuda
-def test_lookup_kernel_refuses_gradients_on_gpu(cuda_device):
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("level", range(4))
+def test_lookup_bwd_kernel_matches_plain_on_gpu(cuda_device, dtype, level):
+    """The backward kernel against its plain twin at the flagship level
+    shapes, twice, bitwise repeatable (chip_smoke's backward phase)."""
+    import chip_smoke
+
     from bflow_tpu_torch.kernels import corr_lookup
 
-    vol = torch.zeros(4, 5, 6, device=cuda_device, requires_grad=True)
-    coords = torch.zeros(4, 2, device=cuda_device)
-    with pytest.raises(NotImplementedError, match="backward"):
-        corr_lookup.corr_lookup_level(vol, coords, 4)
+    Tl, hl, wl = chip_smoke.LEVELS[level]
+    before = corr_lookup.bwd_launches
+    rec = chip_smoke.check_lookup_bwd_level(Tl, hl, wl, dtype, seed=level,
+                                            timing=False)
+    assert corr_lookup.bwd_launches == before + 2
+    assert rec["ok"], rec
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("vol_grad", [True, False])
+def test_lookup_kernel_gradients_on_gpu(cuda_device, vol_grad):
+    """Autograd through the CUDA lookup runs the backward kernel once and
+    gives the twin's VJP; a volume that needs no gradient gets none."""
+    import chip_smoke
+
+    from bflow_tpu_torch.kernels import corr_lookup
+
+    vol, coords = chip_smoke.level_inputs(2, 15, 20, torch.float32, seed=5)
+    vol.requires_grad_(vol_grad)
+    coords.requires_grad_(True)
+    g = torch.randn(vol.shape[0], 81, device=cuda_device)
+    before = corr_lookup.bwd_launches
+    out = corr_lookup.corr_lookup_level(vol, coords, 4)
+    (out * g).sum().backward()
+    torch.cuda.synchronize()
+    assert corr_lookup.bwd_launches == before + 1
+    want_v, want_c = corr_lookup.corr_lookup_level_bwd_plain(
+        vol.detach(), coords.detach(), g, 4)
+    assert (coords.grad - want_c).abs().max() <= 1e-4 * want_c.abs().max()
+    if vol_grad:
+        assert (vol.grad - want_v).abs().max() <= 1e-5 * want_v.abs().max()
+    else:
+        assert vol.grad is None

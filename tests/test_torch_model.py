@@ -143,7 +143,7 @@ def test_kernel_methods_take_plain_lookup_on_cpu(setup, method):
 @pytest.mark.parametrize("override", [
     dict(lookup_method="onehot"), dict(lookup_method="pallas_q8"),
     dict(onehot_from_level=2), dict(scan_iters=True),
-    dict(remat_updates=True), dict(pallas_stem=True),
+    dict(onehot_from_level=0), dict(pallas_stem=True),
     dict(pallas_conv=True),
 ])
 def test_unported_options_raise(override):
@@ -153,10 +153,33 @@ def test_unported_options_raise(override):
 
 
 def test_train_forward_not_ported(setup):
+    """The training forward is ported now (the name is the one this test
+    had while it raised): test_mode=False returns every iteration's
+    upsampled curves, with a graph for the loss; the last one is the
+    test_mode prediction (eval mode: both read the running BatchNorm
+    statistics)."""
     variables, _, voxel, images = setup
     model = _port_model(variables)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        model(torch.from_numpy(voxel), torch.from_numpy(images))
+    preds = model(torch.from_numpy(voxel), torch.from_numpy(images))
+    assert len(preds) == model.config.iters_train == 2
+    assert all(tuple(p.params.shape) == (1, 64, 64, 2, 2) for p in preds)
+    assert preds[-1].params.requires_grad
+    _, up = model(torch.from_numpy(voxel), torch.from_numpy(images),
+                  test_mode=True)
+    assert not up.params.requires_grad
+    assert torch.equal(preds[-1].params.detach(), up.params)
+    assert not torch.equal(preds[0].params, preds[1].params)
+
+
+def test_remat_updates_is_ported(setup):
+    """remat_updates builds, and its forward equals the plain one (the
+    gradients are held equal in tests/test_torch_train.py)."""
+    variables, _, voxel, images = setup
+    plain = _port_model(variables)
+    remat = _port_model(variables, remat_updates=True)
+    a = plain(torch.from_numpy(voxel), torch.from_numpy(images))
+    b = remat(torch.from_numpy(voxel), torch.from_numpy(images))
+    assert all(torch.equal(x.params, y.params) for x, y in zip(a, b))
 
 
 def test_build_model_is_seeded():
