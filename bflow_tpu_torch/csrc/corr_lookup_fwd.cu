@@ -19,24 +19,16 @@
 // threads of a query sit next to each other, so one warp touches one or two
 // queries; their corner reads fall in the same few cache lines of the
 // query's patch, which L1 serves after the first miss, and the output store
-// is fully coalesced. Validity is decided in float before any float->int
-// conversion, so far-away coordinates (random-init flows reach hundreds of
-// pixels) never convert an out-of-range value. The blend runs in f32 and
-// rounds once to the volume's type (the TPU kernel rounds the y-blend to
-// bf16 before the x-blend, so the two differ by up to a bf16 rounding).
+// is fully coalesced. The tap itself (corr_lookup_tap.cuh) blends in f32
+// and rounds once to the volume's type (the TPU kernel rounds the y-blend
+// to bf16 before the x-blend, so the two differ by up to a bf16 rounding).
 // Staging the patch in shared memory with cp.async/TMA is left to a later
 // version.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "corr_lookup_tap.cuh"
 
 namespace {
 
-__device__ __forceinline__ float load_f32(const float* p) { return __ldg(p); }
-__device__ __forceinline__ float load_f32(const __nv_bfloat16* p) {
-  return __bfloat162float(*p);
-}
 __device__ __forceinline__ void store_from_f32(float* p, float v) { *p = v; }
 __device__ __forceinline__ void store_from_f32(__nv_bfloat16* p, float v) {
   *p = __float2bfloat16(v);  // round to nearest even, as torch's .to()
@@ -53,47 +45,10 @@ __global__ void corr_lookup_fwd_kernel(const T* __restrict__ vol,
   if (i >= n_out) return;  // ragged last block
   const int64_t q = i / taps;
   const int t = (int)(i - q * taps);
-  const int dy = t / win - radius;
-  const int dx = t % win - radius;
-
-  const float x = __ldg(coords + 2 * q) + (float)dx;
-  const float y = __ldg(coords + 2 * q + 1) + (float)dy;
-  const float x0 = floorf(x);
-  const float y0 = floorf(y);
-  const float fx = x - x0;
-  const float fy = y - y0;
-
-  // corner validity in float: x0 and x0+1 against [0, wl-1]
-  const float wmax = (float)(wl - 1), hmax = (float)(hl - 1);
-  const bool vx0 = x0 >= 0.f && x0 <= wmax;
-  const bool vx1 = x0 >= -1.f && x0 <= wmax - 1.f;
-  const bool vy0 = y0 >= 0.f && y0 <= hmax;
-  const bool vy1 = y0 >= -1.f && y0 <= hmax - 1.f;
-
-  float v00 = 0.f, v01 = 0.f, v10 = 0.f, v11 = 0.f;
-  if ((vx0 || vx1) && (vy0 || vy1)) {
-    // both values lie in [-1, w-1] here, so the conversion is exact
-    const int ix = (int)x0;
-    const int iy = (int)y0;
-    const T* m = vol + q * (int64_t)hl * wl;
-    if (vy0) {
-      const T* row = m + (int64_t)iy * wl;
-      if (vx0) v00 = load_f32(row + ix);
-      if (vx1) v01 = load_f32(row + ix + 1);
-    }
-    if (vy1) {
-      const T* row = m + (int64_t)(iy + 1) * wl;
-      if (vx0) v10 = load_f32(row + ix);
-      if (vx1) v11 = load_f32(row + ix + 1);
-    }
-  }
-  // the plain version's operations in its order (x-blend per row, then
-  // y), each rounded on its own: no fused multiply-add, so the kernel
-  // and the plain version agree bit for bit
-  const float gx = __fsub_rn(1.f, fx), gy = __fsub_rn(1.f, fy);
-  const float top = __fadd_rn(__fmul_rn(v00, gx), __fmul_rn(v01, fx));
-  const float bot = __fadd_rn(__fmul_rn(v10, gx), __fmul_rn(v11, fx));
-  store_from_f32(out + i, __fadd_rn(__fmul_rn(top, gy), __fmul_rn(bot, fy)));
+  const float x = __ldg(coords + 2 * q) + (float)(t % win - radius);
+  const float y = __ldg(coords + 2 * q + 1) + (float)(t / win - radius);
+  store_from_f32(out + i, corr_tap::bilinear(vol + q * (int64_t)hl * wl, hl,
+                                             wl, x, y));
 }
 
 template <typename T>

@@ -24,9 +24,12 @@ PACKAGE_DIR = Path(__file__).resolve().parent.parent
 CSRC_DIR = PACKAGE_DIR / "csrc"
 BUILD_DIR = PACKAGE_DIR / "build"
 
-# kernel name -> source file under csrc/
+# kernel name -> source file under csrc/ (which may include csrc/*.cuh)
 SOURCES = {"corr_lookup_fwd": "corr_lookup_fwd.cu",
-           "corr_lookup_bwd": "corr_lookup_bwd.cu"}
+           "corr_lookup_bwd": "corr_lookup_bwd.cu",
+           "corr_lookup_q8": "corr_lookup_q8.cu",
+           "conv3x3": "conv3x3.cu",
+           "stem_conv": "stem_conv.cu"}
 
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -34,6 +37,7 @@ NVCC_FLAGS = (
 )
 
 _loaded: Dict[str, ctypes.CDLL] = {}
+_fns: Dict[tuple, ctypes._CFuncPtr] = {}
 
 
 def nvcc_path() -> str:
@@ -52,6 +56,8 @@ def nvcc_path() -> str:
 def library_path(name: str) -> Path:
     src = CSRC_DIR / SOURCES[name]
     digest = hashlib.sha1(src.read_bytes() + " ".join(NVCC_FLAGS).encode())
+    for header in sorted(CSRC_DIR.glob("*.cuh")):  # the shared headers
+        digest.update(header.read_bytes())
     return BUILD_DIR / f"lib{name}-{digest.hexdigest()[:12]}.so"
 
 
@@ -106,6 +112,30 @@ def load(name: str) -> ctypes.CDLL:
         lib = ctypes.CDLL(str(path))
         _loaded[name] = lib
     return lib
+
+
+def function(name: str, symbol: str, argtypes) -> ctypes._CFuncPtr:
+    """The C function ``symbol`` of kernel ``name``'s library, with its
+    argument types set; it returns a CUDA error code."""
+    fn = _fns.get((name, symbol))
+    if fn is None:
+        fn = getattr(load(name), symbol)
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
+        _fns[(name, symbol)] = fn
+    return fn
+
+
+def launch(fn: ctypes._CFuncPtr, device, *args) -> None:
+    """Call a kernel's C function on ``device``'s current stream (passed
+    last) and raise on the cudaGetLastError() it returns."""
+    import torch
+
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream(device).cuda_stream
+        err = fn(*args, stream)
+    if err != 0:
+        raise RuntimeError(f"{fn.__name__} launch failed: CUDA error {err}")
 
 
 if __name__ == "__main__":

@@ -1,0 +1,88 @@
+"""Odd-window stride-1 SAME convolution plus bias with an optional fused
+ReLU, bf16 fast mode: the CUDA kernel's wrapper, its plain PyTorch version
+and the dispatch gate.
+
+Counterpart of the TPU kernel bflow_tpu/ops/pallas/conv3x3.py:_kernel
+(conv2d_pallas and its custom VJP). The CUDA source is csrc/conv3x3.cu
+over csrc/conv_igemm.cuh. ``supported`` is a copy of the JAX package's
+gate: the model sends a conv to the kernel exactly where the JAX package
+sends it to the Pallas kernel, so the two round in the same places.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from bflow_tpu_torch.kernels.conv_common import (
+    ConvFn,
+    check,
+    conv_plain,
+    launch_cuda,
+)
+
+NAME = "conv3x3"
+
+# kernel launches since the last reset (kernels.reset_launch_counts)
+launches = 0
+
+_P_BYTES = 2_000_000  # the TPU kernel's patch scratch budget
+_VMEM_BYTES = 8_000_000  # its whole working-set budget
+
+
+def _round_up(x: int, m: int) -> int:
+    return ((x + m - 1) // m) * m
+
+
+def _pick_ri(h: int, kh: int) -> int:
+    # ri >= kh - 1 keeps the one-block row halo inside the i+1 spec
+    for cand in (16, 12, 10, 8, 6, 5, 4, 3, 2):
+        if h % cand == 0 and cand >= kh - 1:
+            return cand
+    return 0
+
+
+def supported(x_shape, dtype, out_features=None, kh=3, kw=3) -> bool:
+    """The JAX package's gate (bflow_tpu/ops/pallas/conv3x3.py:supported)
+    on the NHWC shape (N, H, W, C) of the input and the compute dtype
+    (None: f32)."""
+    n, h, w, c = x_shape
+    w = _round_up(w, 8)  # the wrapper pads/slices the column axis
+    ri = _pick_ri(h, kh)
+    if ri == 0 or dtype != torch.bfloat16:
+        return False
+    if out_features is not None and out_features < 32:
+        return False  # tiny fan-out: the dot would idle the MXU
+    k = kh * kw * c
+    o = out_features or 128
+    vmem = (
+        4 * ri * (w + kw - 1) * c * 2  # two double-buffered row blocks
+        + min(_P_BYTES, ri * w * k * 2)  # patch scratch
+        + k * o * 2  # weights
+        + 2 * ri * w * o * 2  # output block
+    )
+    return vmem < _VMEM_BYTES
+
+
+def conv2d_plain(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
+                 relu: bool = False) -> torch.Tensor:
+    """The kernel's function: bf16 operands, f32 accumulation, f32 bias,
+    ReLU, one rounding to bf16."""
+    return conv_plain(x, w, b, 1, relu)
+
+
+def _fwd_cuda(x, w, b, stride, relu):
+    global launches
+    out = launch_cuda(NAME, x, w, b, stride, relu)
+    launches += 1
+    return out
+
+
+def conv2d(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
+           relu: bool = False) -> torch.Tensor:
+    """(N, C, H, W) bf16 x, (O, C, kh, kw) w, (O,) b -> (N, O, H, W) bf16,
+    odd kh and kw, SAME padding. CUDA tensors go through the kernel, CPU
+    tensors through conv2d_plain; the gradient is the plain bf16 conv's
+    either way (conv_common.ConvFn)."""
+    check(x, w, b)
+    fwd = conv_plain if x.device.type == "cpu" else _fwd_cuda
+    return ConvFn.apply(x, w, b, 1, relu, fwd)

@@ -3,9 +3,9 @@
 A frozen dataclass: every architectural choice (target indices, pyramid
 depths, iteration count) is fixed when the model is built. Field
 semantics mirror the reference config tree (config/model/raft-spline.yaml
-and the experiment overlays). The options that select TPU-only code
-paths are kept so that a JAX config carries over unchanged; the port
-refuses the ones it has not ported yet (models/raft_spline.py).
+and the experiment overlays). Every option of the JAX config runs in the
+port, so a JAX config carries over unchanged (models/raft_spline.py says
+what each opt-in mode does here).
 """
 
 from __future__ import annotations
@@ -51,18 +51,26 @@ class RaftSplineConfig:
     # volume. Parameters stay f32 either way.
     corr_precision: str = "float32"
     # correlation window lookup: 'auto' and 'pallas' run the CUDA lookup
-    # kernel (its plain version for CPU tensors), 'gather' the plain
-    # version everywhere. 'onehot' and 'pallas_q8' are not ported yet.
+    # kernel (its plain version for CPU tensors), 'pallas_q8' the int8
+    # kernel on the deep-row levels (inference only), 'gather' the plain
+    # version everywhere, 'onehot' the one-hot matmul form (models/corr.py).
     lookup_method: str = "auto"
     # activation dtype for convolutions/GRU ("float32" / "bfloat16").
     compute_dtype: str = "float32"
-    # JAX-side knobs that the port does not implement yet.
+    # recompute the update block in the backward pass
     remat_updates: bool = False
+    # JAX: one rolled lax.scan step (compile time only); the port's loop
+    # is the same eager loop either way
     scan_iters: bool = False
     # contract the motion encoder's 1x1 corr conv against the per-level
     # lookups instead of the concatenated corr map (same function)
     fuse_corr_conv: bool = False
+    # with a kernel lookup method, levels >= this index take the one-hot
+    # lookup (-1: none)
     onehot_from_level: int = -1
+    # bf16 compute only (the gates): the 7x7/s2 stems through the stem
+    # conv kernel, and the residual / update-block convs through the conv
+    # kernels (3x3/s2 through the stem kernel)
     pallas_stem: bool = False
     pallas_conv: bool = False
 

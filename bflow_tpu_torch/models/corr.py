@@ -9,6 +9,17 @@ The windowed lookup keeps the reference channel contract: channels are
 ordered level-major, then target (ascending base index), then the
 (2r+1)^2 window flattened dy-major, the order the released checkpoints'
 1x1 motion-encoder conv expects.
+
+Lookup methods ('auto' and 'pallas' are the lookup kernel, which is what
+'auto' resolves to on the JAX package's accelerator):
+  auto, pallas  the CUDA lookup kernel (its plain version on the CPU)
+  pallas_q8     the int8 kernel on the levels whose row count, padded to
+                16 as in the JAX package, is >= 32; the others as 'pallas'
+                (inference only)
+  gather        the plain lookup everywhere (the JAX package's oracle)
+  onehot        the JAX package's one-hot matmul formulation, f32 output
+With onehot_from_level >= 0, the kernel methods send the levels from that
+index on to the one-hot lookup (output cast to the volume's type).
 """
 
 from __future__ import annotations
@@ -21,19 +32,17 @@ import torch
 from bflow_tpu_torch.kernels.corr_lookup import (
     corr_lookup_level,
     corr_lookup_level_plain,
+    corr_lookup_level_q8,
+    quantize_volume,
 )
 
-# One pyramid level: (base-target indices at this level, volume).
-CorrLevel = Tuple[Tuple[int, ...], torch.Tensor]
+# One pyramid level: (base-target indices at this level, volume), the
+# volume an (int8 volume, scale) pair on the levels pallas_q8 quantizes.
+CorrLevel = Tuple[Tuple[int, ...],
+                  Union[torch.Tensor, Tuple[torch.Tensor, torch.Tensor]]]
 
-# lookup_method -> per-level lookup. 'auto' and 'pallas' name the lookup
-# kernel (the JAX package's Pallas kernel on the TPU), 'gather' its plain
-# version, the JAX package's oracle.
-LOOKUPS = {
-    "auto": corr_lookup_level,
-    "pallas": corr_lookup_level,
-    "gather": corr_lookup_level_plain,
-}
+KERNEL_METHODS = ("auto", "pallas", "pallas_q8")
+METHODS = (*KERNEL_METHODS, "gather", "onehot")
 
 
 def all_pairs_correlation(fmap_ref: torch.Tensor, fmap_tgt: torch.Tensor,
@@ -108,37 +117,113 @@ def build_corr_pyramid(fmap_ref: torch.Tensor, fmap_tgt: torch.Tensor,
     return pyramid
 
 
+def quantizes(hl: int) -> bool:
+    """The JAX package's pallas_q8 gate (models/corr.py:218): it pads a
+    level's rows to a multiple of 16 and quantizes when that is >= 32."""
+    return -(-hl // 16) * 16 >= 32
+
+
+def build_pyramid_for_method(fmap_ref: torch.Tensor, fmap_tgt: torch.Tensor,
+                             levels_per_target: Sequence[int],
+                             precision: str, method: str,
+                             onehot_from_level: int = -1) -> List[CorrLevel]:
+    """build_corr_pyramid, with the levels that pallas_q8 quantizes held as
+    (int8 volume, (Tl, N, h1) scale): the JAX package's
+    build_pyramid_for_method without its slab layout. Levels sent to the
+    one-hot lookup (onehot_from_level) stay unquantized."""
+    pyramid = build_corr_pyramid(fmap_ref, fmap_tgt, levels_per_target,
+                                 precision)
+    if method != "pallas_q8":
+        return pyramid
+    return [(idx, quantize_volume(vol)
+             if quantizes(vol.shape[4])
+             and not 0 <= onehot_from_level <= lvl else vol)
+            for lvl, (idx, vol) in enumerate(pyramid)]
+
+
+def lookup_level_onehot(vol: torch.Tensor, c: torch.Tensor, radius: int,
+                        precision: str) -> torch.Tensor:
+    """(Tl, N, h1, w1, hl, wl) volume, (Tl, N, h1, w1, 2) coords ->
+    (Tl, N, h1, w1, (2r+1)^2) f32: the JAX package's _lookup_level_onehot.
+    Each query's (2r+2)^2 integer patch around floor(c) is selected with
+    one-hot row and column matrices (all-zero rows outside the map are the
+    zero padding) in the ``precision`` type, exactly; the four corner
+    windows are blended in f32."""
+    Tl, N, h1, w1, hl, wl = vol.shape
+    r = radius
+    p = 2 * r + 2
+    x, y = c[..., 0], c[..., 1]
+    x0, y0 = torch.floor(x), torch.floor(y)
+    fx = (x - x0)[..., None, None]
+    fy = (y - y0)[..., None, None]
+    offs = torch.arange(-r, r + 2, device=c.device)
+    ry = y0.to(torch.int32)[..., None] + offs  # (Tl, N, h1, w1, p)
+    rx = x0.to(torch.int32)[..., None] + offs
+    dtype = torch.bfloat16 if precision == "bfloat16" else torch.float32
+    ey = (ry[..., None] == torch.arange(hl, device=c.device)).to(dtype)
+    ex = (rx[..., None] == torch.arange(wl, device=c.device)).to(dtype)
+    q = Tl * N * h1 * w1
+    # one-hot selections are exact in either type
+    t1 = torch.matmul(ey.reshape(q, p, hl), vol.to(dtype).reshape(q, hl, wl))
+    patch = torch.matmul(t1, ex.reshape(q, p, wl).transpose(1, 2)).float()
+    patch = patch.reshape(Tl, N, h1, w1, p, p)
+    win = 2 * r + 1
+    out = ((1 - fy) * (1 - fx) * patch[..., :win, :win]
+           + (1 - fy) * fx * patch[..., :win, 1:]
+           + fy * (1 - fx) * patch[..., 1:, :win]
+           + fy * fx * patch[..., 1:, 1:])
+    return out.reshape(Tl, N, h1, w1, win * win)
+
+
 def corr_lookup(
     pyramid: List[CorrLevel],
     coords: torch.Tensor,
     radius: int,
     method: str = "auto",
     concat: bool = True,
+    precision: str = "float32",
+    onehot_from_level: int = -1,
 ) -> Union[torch.Tensor, List[torch.Tensor]]:
     """Gather (2r+1)^2 bilinear windows around per-target query coords.
 
     Args:
-      pyramid: output of build_corr_pyramid.
+      pyramid: output of build_pyramid_for_method (of build_corr_pyramid
+        for every method but pallas_q8).
       coords: (T, N, h1, w1, 2) f32 query positions per base target, in
         full-resolution volume pixels, (x, y) last; level l divides by 2^l.
       radius: window radius r.
-      method: 'auto' | 'pallas' (the lookup kernel; its plain version for
-        CPU tensors) | 'gather' (the plain version everywhere).
+      method: one of METHODS (module docstring); the kernels run their
+        plain versions for CPU tensors.
       concat: True -> one (N, h1, w1, C) map, channels (level, target,
         window). False -> the per-level (Tl, N, h1, w1, (2r+1)^2) list.
+      precision: the one-hot matmuls' type ('float32' | 'bfloat16').
+      onehot_from_level: with a kernel method, levels >= this index (when
+        >= 0) take the one-hot lookup instead.
     """
-    if method not in LOOKUPS:
+    if method not in METHODS:
         raise NotImplementedError(
-            f"lookup_method={method!r} is not ported yet (ROADMAP Queue 1 "
-            f"item 10; 'pallas_q8' also needs Queue 2 item 3)")
-    lookup = LOOKUPS[method]
+            f"lookup_method={method!r} is not one of the JAX package's "
+            f"lookup methods {METHODS}")
     T, N, h1, w1, _ = coords.shape
     outs: List[torch.Tensor] = []
     for lvl, (target_idx, vol) in enumerate(pyramid):
         c = coords[list(target_idx)] / (2.0 ** lvl)
         q = len(target_idx) * N * h1 * w1
-        hl, wl = vol.shape[-2:]
-        feat = lookup(vol.reshape(q, hl, wl), c.reshape(q, 2), radius)
+        onehot_here = (method in KERNEL_METHODS
+                       and 0 <= onehot_from_level <= lvl)
+        if method == "onehot" or onehot_here:
+            feat = lookup_level_onehot(vol, c, radius, precision)
+            if onehot_here:
+                feat = feat.to(vol.dtype)
+        elif isinstance(vol, tuple):  # (int8 volume, per-row scale)
+            vq, scale = vol
+            feat = corr_lookup_level_q8(vq.reshape(q, *vq.shape[-2:]),
+                                        scale, c.reshape(q, 2), radius)
+        else:
+            lookup = (corr_lookup_level_plain if method == "gather"
+                      else corr_lookup_level)
+            hl, wl = vol.shape[-2:]
+            feat = lookup(vol.reshape(q, hl, wl), c.reshape(q, 2), radius)
         outs.append(feat.reshape(len(target_idx), N, h1, w1, -1))
     if not concat:
         return outs

@@ -10,6 +10,13 @@ the reference checkpoint's (``conv1``, ``norm1``, ``layer2.0.downsample.0``
 Precision follows the JAX modules' ``dtype``: parameters stay f32; with a
 compute dtype, each conv casts its input, weight and bias to it at use.
 Norm statistics are taken in f32 and the result is cast back.
+
+The opt-in conv kernels follow the JAX package's dispatch
+(bflow_tpu/models/extractor.py:Conv3x3, StemConv): under ``pallas_stem``
+the 7x7/s2 stem, under ``pallas_conv`` every 3x3 (stride 1: the conv3x3
+kernel, stride 2: the stem kernel) goes through a CUDA kernel wherever the
+copied JAX gate passes on the input's NHWC shape; elsewhere it stays on
+F.conv2d.
 """
 
 from __future__ import annotations
@@ -20,6 +27,8 @@ from typing import List, Optional, Sequence, Union
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
+
+from bflow_tpu_torch.kernels import conv3x3, stem_conv
 
 # std of a standard normal truncated to [-2, 2]: flax's variance_scaling
 # divides by it so that the truncated draw keeps the requested variance
@@ -38,15 +47,44 @@ def kaiming_out_(weight: torch.Tensor,
                               generator=generator)
 
 
+def conv2d(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
+           stride, padding, compute_dtype: Optional[torch.dtype],
+           use_kernel: bool = False, relu: bool = False) -> torch.Tensor:
+    """One SAME conv of the model, then the ReLU. With ``use_kernel`` it
+    goes where the JAX package would take its Pallas kernel, as the copied
+    gate decides on the NHWC shape: stride 1 to conv3x3 (the ReLU fused),
+    stride 2 to stem_conv (the ReLU after it). Otherwise F.conv2d in
+    ``compute_dtype`` (None: the input's own type) with the parameters
+    cast at use."""
+    if use_kernel:
+        n, c, h, w = x.shape
+        o, _, kh, kw = weight.shape
+        nhwc = (n, h, w, c)
+        if stride == 1 and conv3x3.supported(nhwc, compute_dtype, o, kh, kw):
+            return conv3x3.conv2d(x.to(compute_dtype), weight, bias, relu)
+        if stride == 2 and stem_conv.supported(nhwc, compute_dtype, kh, kw):
+            out = stem_conv.stem_conv(x.to(compute_dtype), weight, bias)
+            return F.relu(out) if relu else out
+    if compute_dtype is not None:
+        x = x.to(compute_dtype)
+    out = F.conv2d(x, weight.to(x.dtype), bias.to(x.dtype), stride, padding)
+    return F.relu(out) if relu else out
+
+
 class Conv2d(nn.Conv2d):
     """nn.Conv2d that runs in ``compute_dtype`` (None: the input's own
-    type) with its f32 parameters cast at use."""
+    type) with its f32 parameters cast at use; ``use_kernel`` lets the
+    conv take a CUDA kernel where the JAX gate passes, ``relu`` applies a
+    ReLU (fused into the stride-1 kernel)."""
 
     def __init__(self, cin: int, cout: int, kernel_size, stride=1,
-                 padding=0, compute_dtype: Optional[torch.dtype] = None):
+                 padding=0, compute_dtype: Optional[torch.dtype] = None,
+                 use_kernel: bool = False, relu: bool = False):
         super().__init__(cin, cout, kernel_size, stride=stride,
                          padding=padding)
         self.compute_dtype = compute_dtype
+        self.use_kernel = use_kernel
+        self.relu = relu
 
     def reset_parameters(self, generator: Optional[torch.Generator] = None):
         # nn.Conv2d.__init__ calls this without a generator (torch's global
@@ -55,10 +93,9 @@ class Conv2d(nn.Conv2d):
         nn.init.zeros_(self.bias)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        if self.compute_dtype is not None:
-            x = x.to(self.compute_dtype)
-        return F.conv2d(x, self.weight.to(x.dtype), self.bias.to(x.dtype),
-                        self.stride, self.padding)
+        return conv2d(x, self.weight, self.bias, self.stride[0],
+                      self.padding, self.compute_dtype, self.use_kernel,
+                      self.relu)
 
 
 class Conv1x1(Conv2d):
@@ -137,13 +174,16 @@ def make_norm(kind: str, channels: int, num_groups: int) -> nn.Module:
 
 class ResidualBlock(nn.Module):
     def __init__(self, in_planes: int, planes: int, norm: str,
-                 stride: int = 1, compute_dtype=None):
+                 stride: int = 1, compute_dtype=None,
+                 conv_kernel: bool = False):
         super().__init__()
         groups = planes // 8
         self.conv1 = Conv2d(in_planes, planes, 3, stride=stride, padding=1,
-                            compute_dtype=compute_dtype)
+                            compute_dtype=compute_dtype,
+                            use_kernel=conv_kernel)
         self.conv2 = Conv2d(planes, planes, 3, padding=1,
-                            compute_dtype=compute_dtype)
+                            compute_dtype=compute_dtype,
+                            use_kernel=conv_kernel)
         self.norm1 = make_norm(norm, planes, groups)
         self.norm2 = make_norm(norm, planes, groups)
         self.downsample = None
@@ -164,21 +204,25 @@ class ResidualBlock(nn.Module):
 
 class BasicEncoder(nn.Module):
     """(N, C, H, W), or a list of such (run as one batched call) ->
-    (N, output_dim, H/8, W/8), or the list of outputs."""
+    (N, output_dim, H/8, W/8), or the list of outputs. ``stem_kernel`` and
+    ``conv_kernel`` are the JAX package's ``stem_pallas`` and
+    ``conv_pallas``."""
 
     def __init__(self, input_dim: int, output_dim: int = 128,
-                 norm: str = "batch", compute_dtype=None):
+                 norm: str = "batch", compute_dtype=None,
+                 stem_kernel: bool = False, conv_kernel: bool = False):
         super().__init__()
         cdt = compute_dtype
         self.conv1 = Conv2d(input_dim, 64, 7, stride=2, padding=3,
-                            compute_dtype=cdt)
+                            compute_dtype=cdt, use_kernel=stem_kernel)
         self.norm1 = make_norm(norm, 64, 8)
         in_planes = 64
         for stage, planes in ((1, 64), (2, 96), (3, 128)):
             stride = 1 if stage == 1 else 2
             setattr(self, f"layer{stage}", nn.Sequential(
-                ResidualBlock(in_planes, planes, norm, stride, cdt),
-                ResidualBlock(planes, planes, norm, 1, cdt),
+                ResidualBlock(in_planes, planes, norm, stride, cdt,
+                              conv_kernel),
+                ResidualBlock(planes, planes, norm, 1, cdt, conv_kernel),
             ))
             in_planes = planes
         self.conv2 = Conv1x1(128, output_dim, compute_dtype=cdt)

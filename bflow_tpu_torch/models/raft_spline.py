@@ -14,6 +14,14 @@ pyramid level) and run the update block; the last step's curves are
 convex-upsampled (in training, every step's). With ``remat_updates`` the
 update block is recomputed in the backward pass instead of keeping its
 activations (torch.utils.checkpoint), as flax's nn.checkpoint does.
+
+Every config switch of the JAX package runs: ``pallas_stem`` and
+``pallas_conv`` send the convs their gates pass through the conv kernels
+(models/extractor.py, models/update.py), ``lookup_method`` and
+``onehot_from_level`` pick the lookup (models/corr.py; ``pallas_q8`` is
+inference only and raises under autograd), and ``scan_iters``, which in
+JAX rolls the loop into one lax.scan step to cut compile time, runs the
+same eager loop here.
 """
 
 from __future__ import annotations
@@ -26,39 +34,14 @@ from torch.utils.checkpoint import checkpoint
 
 from bflow_tpu_torch.models.config import RaftSplineConfig
 from bflow_tpu_torch.models.corr import (
-    LOOKUPS,
-    build_corr_pyramid,
+    METHODS,
+    build_pyramid_for_method,
     corr_lookup,
 )
 from bflow_tpu_torch.models.extractor import BasicEncoder
 from bflow_tpu_torch.models.update import BasicUpdateBlock, compute_dtype_of
 from bflow_tpu_torch.ops.bezier import BezierCurves
 from bflow_tpu_torch.ops.sampler import coords_grid
-
-# config options of the JAX package that this port does not run yet, with
-# the ROADMAP item that ports them
-_NOT_PORTED = (
-    ("scan_iters", "Queue 1 item 10 (opt-in modes)"),
-    ("pallas_stem", "Queue 2 item 4 (stem conv kernel)"),
-    ("pallas_conv", "Queue 2 item 5 (3x3 conv kernel)"),
-)
-
-
-def check_supported(cfg: RaftSplineConfig) -> None:
-    """Raise NotImplementedError for a config option not ported yet."""
-    for field, item in _NOT_PORTED:
-        if getattr(cfg, field):
-            raise NotImplementedError(
-                f"{field}=True is not ported yet (ROADMAP {item})")
-    if cfg.onehot_from_level >= 0:
-        raise NotImplementedError(
-            "onehot_from_level >= 0 is not ported yet "
-            "(ROADMAP Queue 1 item 10, opt-in modes)")
-    if cfg.lookup_method not in LOOKUPS:
-        raise NotImplementedError(
-            f"lookup_method={cfg.lookup_method!r} is not ported yet "
-            f"(ROADMAP Queue 1 item 10; pallas_q8 also Queue 2 item 3)")
-
 
 def bezier_to_channels(bez: BezierCurves) -> torch.Tensor:
     """(N,H,W,P,2) -> (N,2P,H,W), dimension-major (x_P1..x_Pn, y_P1..)."""
@@ -78,21 +61,25 @@ def channels_to_bezier_delta(delta: torch.Tensor, degree: int) -> torch.Tensor:
 class RAFTSpline(nn.Module):
     def __init__(self, config: RaftSplineConfig):
         super().__init__()
-        check_supported(config)
+        if config.lookup_method not in METHODS:
+            raise ValueError(f"lookup_method={config.lookup_method!r} is "
+                             f"not one of {METHODS}")
         self.config = cfg = config
         cdt = compute_dtype_of(cfg)
+        kernels = dict(stem_kernel=cfg.pallas_stem,
+                       conv_kernel=cfg.pallas_conv)
         ctx_in = 0
         if cfg.use_events:
             self.fnet_ev = BasicEncoder(cfg.nbins_correlation,
                                         cfg.feature_dim, cfg.feature_norm,
-                                        cdt)
+                                        cdt, **kernels)
             ctx_in += cfg.nbins_context
         if cfg.use_images:
             self.fnet_img = BasicEncoder(3, cfg.feature_dim,
-                                         cfg.feature_norm, cdt)
+                                         cfg.feature_norm, cdt, **kernels)
             ctx_in += 3
         self.cnet = BasicEncoder(ctx_in, cfg.hidden_dim + cfg.context_dim,
-                                 cfg.context_norm, cdt)
+                                 cfg.context_norm, cdt, **kernels)
         self.update_block = BasicUpdateBlock(cfg)
 
     def _gen_voxel_grids(
@@ -135,6 +122,12 @@ class RAFTSpline(nn.Module):
             iters = cfg.iters_test if test_mode else cfg.iters_train
         if iters < 1:
             raise ValueError(f"iters must be positive, got {iters}")
+        if cfg.lookup_method == "pallas_q8" and torch.is_grad_enabled():
+            raise RuntimeError(
+                "lookup_method='pallas_q8' is inference only (the int8 "
+                "lookup has no gradient, as in the JAX package): call with "
+                "test_mode=True or under torch.no_grad(), or train with "
+                "lookup_method='pallas'")
         cdt = compute_dtype_of(cfg)
         f32_corr = cfg.corr_precision == "float32"
         fmap_refs: List[torch.Tensor] = []
@@ -177,11 +170,11 @@ class RAFTSpline(nn.Module):
         inp = torch.relu(cnet_out[:, cfg.hidden_dim:])
 
         # (T, N, D, h1, w1) -> (T, N, h1, w1, D)
-        pyramid = build_corr_pyramid(
+        pyramid = build_pyramid_for_method(
             torch.stack(fmap_refs).permute(0, 1, 3, 4, 2),
             torch.stack(fmap_tgts).permute(0, 1, 3, 4, 2),
-            cfg.levels_per_target,
-            precision=cfg.corr_precision,
+            cfg.levels_per_target, cfg.corr_precision, cfg.lookup_method,
+            cfg.onehot_from_level,
         )
 
         N, _, H, W = context.shape
@@ -204,7 +197,9 @@ class RAFTSpline(nn.Module):
             coords1 = coords0[None] + bezier.flow_at(ts)
             corr = corr_lookup(pyramid, coords1, cfg.radius,
                                method=cfg.lookup_method,
-                               concat=not cfg.fuse_corr_conv)
+                               concat=not cfg.fuse_corr_conv,
+                               precision=cfg.corr_precision,
+                               onehot_from_level=cfg.onehot_from_level)
             bez_ch = bezier_to_channels(bezier)
             if remat:
                 net, mask, delta = checkpoint(

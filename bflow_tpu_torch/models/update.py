@@ -5,6 +5,12 @@ channels fed to the convolutions are dimension-major (x_P1..x_Pn,
 y_P1..y_Pn), as in the reference, so imported weights line up channel for
 channel. The correlation input keeps the JAX layout: one (N, h1, w1, C)
 map, or the per-level (Tl, N, h1, w1, (2r+1)^2) lookups (fuse_corr_conv).
+
+Under ``pallas_conv`` the convs follow the JAX package's dispatch
+(bflow_tpu/models/update.py): every conv takes the conv3x3 kernel where
+the copied JAX gate passes (models/extractor.py:conv2d), convc2,
+convf2, conv, mask_0 and bezier_head.conv1 with the ReLU fused, and the
+GRU runs the JAX package's fused gate decomposition.
 """
 
 from __future__ import annotations
@@ -16,7 +22,7 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from bflow_tpu_torch.models.config import RaftSplineConfig
-from bflow_tpu_torch.models.extractor import Conv2d
+from bflow_tpu_torch.models.extractor import Conv2d, conv2d
 
 
 def compute_dtype_of(cfg: RaftSplineConfig) -> Optional[torch.dtype]:
@@ -25,32 +31,66 @@ def compute_dtype_of(cfg: RaftSplineConfig) -> Optional[torch.dtype]:
 
 class BezierHead(nn.Module):
     def __init__(self, input_dim: int, bezier_degree: int,
-                 hidden_dim: int = 256, compute_dtype=None):
+                 hidden_dim: int = 256, compute_dtype=None,
+                 use_kernel: bool = False):
         super().__init__()
         self.conv1 = Conv2d(input_dim, hidden_dim, 3, padding=1,
-                            compute_dtype=compute_dtype)
+                            compute_dtype=compute_dtype,
+                            use_kernel=use_kernel, relu=True)
+        # conv2's fan-out (2 * degree) fails the kernel's gate
         self.conv2 = Conv2d(hidden_dim, 2 * bezier_degree, 3, padding=1,
-                            compute_dtype=compute_dtype)
+                            compute_dtype=compute_dtype,
+                            use_kernel=use_kernel)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return self.conv2(F.relu(self.conv1(x)))
+        return self.conv2(self.conv1(x))
 
 
 class SepConvGRU(nn.Module):
     """Two-pass gated GRU with separable 1x5 / 5x1 convolutions, with the
-    reference's per-gate parameters (convz1, convr1, convq1, ...)."""
+    reference's per-gate parameters (convz1, convr1, convq1, ...).
+
+    ``use_kernel`` (pallas_conv) takes the JAX package's fused form: per
+    pass one conv over [h, x] with the kernel [kz | kr | kq with its
+    h-rows zeroed] gives [z | r | q_x], and one conv over r*h with kq's
+    h-rows gives the rest of q; each goes through the kernel where the
+    gate passes on its own shape."""
 
     def __init__(self, hidden_dim: int = 128, input_dim: int = 256,
-                 compute_dtype=None):
+                 compute_dtype=None, use_kernel: bool = False):
         super().__init__()
         cin = hidden_dim + input_dim
+        self.hidden_dim = hidden_dim
+        self.compute_dtype = compute_dtype
+        self.use_kernel = use_kernel
         for suffix, k, pad in (("1", (1, 5), (0, 2)), ("2", (5, 1), (2, 0))):
             for gate in "zrq":
                 setattr(self, f"conv{gate}{suffix}", Conv2d(
                     cin, hidden_dim, k, padding=pad,
                     compute_dtype=compute_dtype))
 
+    def _fused_pass(self, h: torch.Tensor, x: torch.Tensor,
+                    suffix: str) -> torch.Tensor:
+        d, cdt, uk = self.hidden_dim, self.compute_dtype, self.use_kernel
+        cz, cr, cq = (getattr(self, f"conv{g}{suffix}") for g in "zrq")
+        kq_x = torch.cat([torch.zeros_like(cq.weight[:, :d]),
+                          cq.weight[:, d:]], dim=1)
+        zrq = conv2d(torch.cat([h, x], dim=1),
+                     torch.cat([cz.weight, cr.weight, kq_x]),
+                     torch.cat([cz.bias, cr.bias, cq.bias]), 1, cq.padding,
+                     cdt, uk)
+        z = torch.sigmoid(zrq[:, :d])
+        r = torch.sigmoid(zrq[:, d:2 * d])
+        q_h = conv2d(r * h.to(r.dtype), cq.weight[:, :d],
+                     torch.zeros_like(cq.bias), 1, cq.padding, cdt, uk)
+        q = torch.tanh(q_h + zrq[:, 2 * d:])
+        return (1.0 - z) * h.to(z.dtype) + z * q
+
     def forward(self, h: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+        if self.use_kernel:
+            for suffix in "12":
+                h = self._fused_pass(h, x, suffix)
+            return h
         for suffix in "12":
             hx = torch.cat([h, x], dim=1)
             z = torch.sigmoid(getattr(self, f"convz{suffix}")(hx))
@@ -66,16 +106,21 @@ class BasicMotionEncoder(nn.Module):
     def __init__(self, cfg: RaftSplineConfig):
         super().__init__()
         cdt = compute_dtype_of(cfg)
+        uk = cfg.pallas_conv
         bz = 2 * cfg.bezier_degree
         self.corr_planes = cfg.corr_planes
         self.compute_dtype = cdt
         # convc1 holds the parameters only: forward contracts them itself
         self.convc1 = Conv2d(cfg.corr_planes, 256, 1, compute_dtype=cdt)
-        self.convc2 = Conv2d(256, 192, 3, padding=1, compute_dtype=cdt)
-        self.convf1 = Conv2d(bz, 128, 7, padding=3, compute_dtype=cdt)
-        self.convf2 = Conv2d(128, 64, 3, padding=1, compute_dtype=cdt)
+        self.convc2 = Conv2d(256, 192, 3, padding=1, compute_dtype=cdt,
+                             use_kernel=uk, relu=True)
+        # the ReLU after convf1 is not fused, as in the JAX package
+        self.convf1 = Conv2d(bz, 128, 7, padding=3, compute_dtype=cdt,
+                             use_kernel=uk)
+        self.convf2 = Conv2d(128, 64, 3, padding=1, compute_dtype=cdt,
+                             use_kernel=uk, relu=True)
         self.conv = Conv2d(192 + 64, cfg.motion_dim - bz, 3, padding=1,
-                           compute_dtype=cdt)
+                           compute_dtype=cdt, use_kernel=uk, relu=True)
 
     def _corr_features(
         self, corr: Union[torch.Tensor, List[torch.Tensor]],
@@ -111,9 +156,9 @@ class BasicMotionEncoder(nn.Module):
         return F.relu(y).reshape(N, h1, w1, 256).permute(0, 3, 1, 2)
 
     def forward(self, bezier: torch.Tensor, corr) -> torch.Tensor:
-        cor = F.relu(self.convc2(self._corr_features(corr)))
-        bez = F.relu(self.convf2(F.relu(self.convf1(bezier))))
-        out = F.relu(self.conv(torch.cat([cor, bez], dim=1)))
+        cor = self.convc2(self._corr_features(corr))
+        bez = self.convf2(F.relu(self.convf1(bezier)))
+        out = self.conv(torch.cat([cor, bez], dim=1))
         return torch.cat([out, bezier.to(out.dtype)], dim=1)
 
 
@@ -121,14 +166,18 @@ class BasicUpdateBlock(nn.Module):
     def __init__(self, cfg: RaftSplineConfig):
         super().__init__()
         cdt = compute_dtype_of(cfg)
+        uk = cfg.pallas_conv
         self.encoder = BasicMotionEncoder(cfg)
         self.gru = SepConvGRU(cfg.hidden_dim,
-                              cfg.context_dim + cfg.motion_dim, cdt)
+                              cfg.context_dim + cfg.motion_dim, cdt, uk)
         self.bezier_head = BezierHead(cfg.hidden_dim, cfg.bezier_degree,
-                                      compute_dtype=cdt)
+                                      compute_dtype=cdt, use_kernel=uk)
+        # mask.0 applies its ReLU itself (fused into the kernel); slot 1
+        # keeps the reference checkpoint's names mask.0 / mask.2
         self.mask = nn.Sequential(
-            Conv2d(cfg.hidden_dim, 256, 3, padding=1, compute_dtype=cdt),
-            nn.ReLU(),
+            Conv2d(cfg.hidden_dim, 256, 3, padding=1, compute_dtype=cdt,
+                   use_kernel=uk, relu=True),
+            nn.Identity(),
             Conv2d(256, 64 * 9, 1, compute_dtype=cdt),
         )
 

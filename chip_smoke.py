@@ -8,19 +8,28 @@ toolkit (nvcc). Phases, each printing JSON lines:
 
   1. device       card name, CUDA version, nvidia-smi name and power limit
   2. build        nvcc builds every kernel from bflow_tpu_torch/csrc/
-  3. kernel       each kernel (lookup forward, lookup backward) against its
-                  plain PyTorch version at the flagship level shapes (f32
-                  and bf16), with times, bound and the one-call PyTorch
-                  yardstick; yardstick: bounds of the TPU kernels not
-                  ported yet, and F.conv2d at the encoder shapes
+  3. kernel       each kernel against its plain PyTorch version, with
+                  times, bound and the one-call PyTorch yardstick: the
+                  lookup forward and backward at the flagship level shapes
+                  (f32 and bf16); (3c) the int8 lookup at the two levels
+                  pallas_q8 quantizes, and the stem and conv3x3 kernels at
+                  every flagship shape their gates pass, gradients through
+                  their autograd.Functions included
   4. forward      the flagship RAFT-Spline inference forward (480x640, B=1,
                   bf16, 12 iterations) through build_model(); launch counts
-                  reset before and read after; ms/forward, fields/s, memory
-  5. parity       kernel path vs plain path on the same seeded weights
+                  reset before and read after; ms/forward, fields/s, memory;
+                  (4b, opt_forward) the same with pallas_q8, pallas_stem and
+                  pallas_conv, launches held to the count the copied gates
+                  give
+  5. parity       kernel path vs plain path on the same seeded weights;
+                  (5b, opt_parity) the opt-in path vs its plain twins, and
+                  vs the default path (recorded)
   6. train        the DSEC training step (f32, 12 iterations, B=3 at
                   288x384, AdamW + OneCycle) through make_train_step: 2
                   warm-up + 5 timed steps on one batch, launches per step,
-                  loss per step, memory; then one bf16 flagship step
+                  loss per step, memory; then one bf16 flagship step, and
+                  (6c, train_conv) one with the stem and conv kernels, its
+                  gradients vs the plain twins'
   7. train_parity kernel path vs gather path, loss and gradients of a step
   8. kernels      one JSON line summing up every kernel
 and, as the last line, {"ok": true, "device": {...}}. Any failure exits
@@ -32,6 +41,7 @@ by device time, idle share) and writes their chrome traces into DIR.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
 import json
 import statistics
@@ -46,7 +56,11 @@ import torch.nn.functional as F
 import bflow_tpu_torch as bt
 from bflow_tpu_torch import kernels
 from bflow_tpu_torch.kernels import build as kbuild
+from bflow_tpu_torch.kernels import conv3x3 as kconv
+from bflow_tpu_torch.kernels import conv_common
 from bflow_tpu_torch.kernels import corr_lookup as klookup
+from bflow_tpu_torch.kernels import stem_conv as kstem
+from bflow_tpu_torch.models.corr import KERNEL_METHODS, quantizes
 
 # flagship B=1 at 480x640: 60x80 queries, and per pyramid level the number
 # of targets and the map size (5 targets at level 0, then the 2 deep ones)
@@ -399,6 +413,8 @@ def profile_run(fn, unprofiled_ms: float, out_dir: str, name: str,
             "device_idle_share": max(0.0, 1 - kernel_ms / unprofiled_ms),
             "lookup_fwd": share(klookup.NAME),
             "lookup_bwd": share(klookup.BWD_NAME),
+            "lookup_q8": share(klookup.Q8_NAME),
+            "conv_kernels": share("conv_igemm"),
             "memset_and_fill": share("Memset", "memset", "FillFunctor"),
             "add": share("AddFunctor", "CUDAFunctor_add"),
             "top": [{"name": k[:100], "device_ms": us / 1e3, "calls": n}
@@ -457,85 +473,283 @@ def grads_finite(model) -> bool:
                              if p.grad is not None]).all())
 
 
+def step_grads(cfg, batch, seed, damp: bool, plain: bool = False):
+    """Loss and every parameter's gradient of one train-mode forward and
+    backward from the seeded weights; plain: every kernel of the path
+    through its plain twin (plain_twins)."""
+    from bflow_tpu_torch.train.step import TaskConfig, make_loss_fn
+
+    model = bt.build_model(cfg, "cuda", seed).train()
+    if damp:
+        damp_head(model)
+    with plain_twins() if plain else contextlib.nullcontext():
+        loss, _ = make_loss_fn(model, TaskConfig("dsec"))(batch)
+        loss.backward()
+    return loss.item(), {k: p.grad for k, p in model.named_parameters()}
+
+
+def grad_rel(ga, gp):
+    """(worst relative gradient difference, its parameter): each gradient
+    against its own max |grad|, or 1e-2 of the model's largest where that
+    is larger (conv biases in front of a norm have gradient 0 in exact
+    arithmetic and hold round-off on both paths: fnet_img.conv1.bias, 9e-5
+    of its own max between two gather runs)."""
+    gmax = max(g.abs().max().item() for g in gp.values())
+    return max(((ga[k] - gp[k]).abs().max().item()
+                / max(gp[k].abs().max().item(), 1e-2 * gmax), k)
+               for k in gp)
+
+
 def train_parity(cfg, batch, seed, damp: bool):
     """Kernel path vs gather path from the same weights: loss and every
     parameter's gradient of one train-mode forward/backward."""
-    from bflow_tpu_torch.train.step import TaskConfig, make_loss_fn
-
-    out = []
     # deterministic cuDNN algorithms: the default ones may sum with
     # atomics, and their run-to-run spread (7e-5 of a weight gradient's
     # max, f32) would sit at the bound
     torch.backends.cudnn.deterministic = True
-    for method in ("pallas", "gather", "gather"):
-        model = bt.build_model(dataclasses.replace(cfg, lookup_method=method),
-                               "cuda", seed).train()
-        if damp:
-            damp_head(model)
-        loss, _ = make_loss_fn(model, TaskConfig("dsec"))(batch)
-        loss.backward()
-        out.append((loss.item(), {k: p.grad for k, p in
-                                  model.named_parameters()}))
-        del model
+    lk, gk = step_grads(dataclasses.replace(cfg, lookup_method="pallas"),
+                        batch, seed, damp)
+    gather = dataclasses.replace(cfg, lookup_method="gather")
+    lp, gp = step_grads(gather, batch, seed, damp)
+    _, gp2 = step_grads(gather, batch, seed, damp)
     torch.backends.cudnn.deterministic = False
-    (lk, gk), (lp, gp), (_, gp2) = out
-    # each gradient against its own max |grad|, or 1e-2 of the model's
-    # largest where that is larger: conv biases in front of a norm have
-    # gradient 0 in exact arithmetic and hold round-off on both paths
-    # (fnet_img.conv1.bias: 9e-5 of its own max between two gather runs)
-    gmax = max(g.abs().max().item() for g in gp.values())
-
-    def worst(ga):
-        return max(((ga[k] - gp[k]).abs().max().item()
-                    / max(gp[k].abs().max().item(), 1e-2 * gmax), k)
-                   for k in gp)
-
     # the gather path's own run-to-run spread (its backward scatters with
     # atomics), as the floor of what the comparison can resolve
-    return abs(lk - lp) / abs(lp), worst(gk), worst(gp2)
+    return abs(lk - lp) / abs(lp), grad_rel(gk, gp), grad_rel(gp2, gp)
 
 
-def conv_yardstick(what, N, cin, H, W, cout, k, stride):
-    """F.conv2d in bf16 (the one PyTorch call computing what the TPU conv
-    kernels compute: odd-window SAME conv plus bias) at an encoder shape,
-    with its bound: the larger of FLOPs over the bf16 peak and bytes over
-    the memory rate."""
-    gen = torch.Generator(device="cuda").manual_seed(N * cin + k)
-    x = torch.randn(N, cin, H, W, generator=gen, device="cuda").bfloat16()
-    w = (0.05 * torch.randn(cout, cin, k, k, generator=gen, device="cuda")
-         ).bfloat16()
-    b = torch.zeros(cout, device="cuda", dtype=torch.bfloat16)
-    pad = k // 2
-    ho, wo = (H + 2 * pad - k) // stride + 1, (W + 2 * pad - k) // stride + 1
-    flops = 2 * N * ho * wo * cout * cin * k * k
-    nbytes = 2 * (x.numel() + w.numel() + b.numel() + N * cout * ho * wo)
-    bound_ms = max(flops / BF16_FLOPS, nbytes / HBM_BYTES_PER_S) * 1e3
-    return {"what": what, "shape": [N, cin, H, W], "cout": cout, "k": k,
-            "stride": stride, "flops": flops, "bytes": nbytes,
-            "bound_ms": bound_ms,
-            "bound_by": ("operations" if flops / BF16_FLOPS
-                         > nbytes / HBM_BYTES_PER_S else "bytes"),
-            "library_ms": time_ms(lambda: F.conv2d(x, w, b, stride, pad))}
+# ---------------------------------------------------------------------------
+# phase 3c: the opt-in kernels (int8 lookup, stem conv, conv3x3)
 
 
-def q8_lookup_bound(seed: int):
-    """Bytes bound of the int8 lookup forward (TPU kernel row 2) at the
-    flagship level shapes: levels whose padded height is >= 32 read an
-    int8 patch and one f32 scale per (target, batch, query row), the
-    others their bf16 patch (bflow_tpu/models/corr.py: pallas_q8);
-    outputs bf16."""
-    total = 0
-    for lvl, (Tl, hl, wl) in enumerate(LEVELS):
-        vol, coords = level_inputs(Tl, hl, wl, torch.bfloat16, seed + lvl)
-        Q = vol.shape[0]
-        fwd = lookup_bound_bytes(vol, coords, RADIUS)  # bf16 patch
-        taps = Q * (2 * RADIUS + 1) ** 2 * 2
-        patch_bf16 = fwd - Q * 8 - taps
-        if -(-hl // 16) * 16 >= 32:
-            total += patch_bf16 // 2 + Tl * H1 * 4 + Q * 8 + taps
-        else:
-            total += fwd
-    return total, total / HBM_BYTES_PER_S * 1e3
+def check_q8_level(Tl, hl, wl, seed, timing=True):
+    """The int8 lookup kernel vs its plain twin at one level shape, on a
+    bf16 volume quantized as the model quantizes it (one scale per
+    (target, batch, query row)); returns the phase-3c record."""
+    vol, coords = level_inputs(Tl, hl, wl, torch.bfloat16, seed)
+    vq, scale = klookup.quantize_volume(vol.reshape(Tl, 1, H1, W1, hl, wl))
+    vq = vq.reshape(vol.shape)
+    got = klookup.corr_lookup_level_q8(vq, scale, coords, RADIUS)
+    torch.cuda.synchronize()
+    want = klookup.corr_lookup_level_q8_plain(vq, scale, coords, RADIUS)
+    check(got.dtype == want.dtype == torch.bfloat16
+          and got.shape == want.shape, f"q8 output {got.dtype} {got.shape}")
+    err = (got.float() - want.float()).abs().max().item()
+    ref = want.float().abs().max().item()
+    tol = TOL[torch.bfloat16]
+    rec = {"Tl": Tl, "hl": hl, "wl": wl, "queries": vol.shape[0],
+           "dtype": "int8", "max_abs_err": err, "max_abs_ref": ref,
+           "tol_rel": tol, "ok": err <= tol * ref}
+    if not timing:
+        return rec
+    # bytes it must move: the int8 part of each query's patch inside the
+    # map, one f32 scale per query row, the coords and the bf16 taps
+    Q, taps = vol.shape[0], (2 * RADIUS + 1) ** 2
+    bf16_patch = lookup_bound_bytes(vol, coords, RADIUS) - Q * 8 - Q * taps * 2
+    bound_bytes = bf16_patch // 2 + scale.numel() * 4 + Q * 8 + Q * taps * 2
+    rec.update(
+        ms=time_ms(lambda: klookup.corr_lookup_level_q8(vq, scale, coords,
+                                                        RADIUS)),
+        plain_ms=time_ms(lambda: klookup.corr_lookup_level_q8_plain(
+            vq, scale, coords, RADIUS)),
+        bound_bytes=bound_bytes,
+        bound_ms=bound_bytes / HBM_BYTES_PER_S * 1e3,
+        library_ms=None,
+        library_note="no single PyTorch call samples an int8 volume with "
+                     "per-row scales (grid_sample takes float types only)")
+    return rec
+
+
+def flagship_convs(cfg, n=1, h=H, w=W, iters=ITERS):
+    """Every conv of a forward at batch n and h x w that the opt-in modes
+    may send to a kernel, with the kernel that the copied JAX gates pick
+    for it (None: it stays on F.conv2d) and its count per forward. Rows of
+    the same kernel and shape are merged."""
+    cdt = torch.bfloat16 if cfg.compute_dtype == "bfloat16" else None
+    rows = {}
+
+    def add(what, N, C, hh, ww, O, kh, kw, stride, relu, times, use):
+        nhwc = (N, hh, ww, C)
+        kern = None
+        if use and stride == 1 and kconv.supported(nhwc, cdt, O, kh, kw):
+            kern = kconv.NAME
+        elif use and stride == 2 and kstem.supported(nhwc, cdt, kh, kw):
+            kern = kstem.NAME
+        key = (kern, N, C, hh, ww, O, kh, kw, stride, relu)
+        row = rows.setdefault(key, {
+            "kernel": kern, "what": [], "shape": [N, C, hh, ww],
+            "cout": O, "kh": kh, "kw": kw, "stride": stride, "relu": relu,
+            "per_forward": 0})
+        row["what"].append(what)
+        row["per_forward"] += times
+
+    ctx_in = cfg.nbins_context + 3 * cfg.use_images
+    encoders = [("fnet_ev", 5 * n, cfg.nbins_correlation),
+                ("fnet_img", 2 * n, 3), ("cnet", n, ctx_in)]
+    for name, N, cin in encoders:
+        add(f"{name} stem 7x7/s2", N, cin, h, w, 64, 7, 7, 2, False, 1,
+            cfg.pallas_stem)
+        hh, ww, c = h // 2, w // 2, 64
+        for stage, planes in ((1, 64), (2, 96), (3, 128)):
+            s = 1 if stage == 1 else 2
+            add(f"{name} layer{stage}_0.conv1 3x3/s{s}", N, c, hh, ww,
+                planes, 3, 3, s, False, 1, cfg.pallas_conv)
+            hh, ww = (hh - 1) // s + 1, (ww - 1) // s + 1
+            # layer{stage}_0.conv2, layer{stage}_1.conv1 and .conv2
+            add(f"{name} layer{stage} 3x3", N, planes, hh, ww, planes, 3, 3,
+                1, False, 3, cfg.pallas_conv)
+            c = planes
+    h1, w1, pc = h // 8, w // 8, cfg.pallas_conv
+    d, bz = cfg.hidden_dim, 2 * cfg.bezier_degree
+    gin = d + cfg.context_dim + cfg.motion_dim
+    add("update convc2 3x3", n, 256, h1, w1, 192, 3, 3, 1, True, iters, pc)
+    add("update convf1 7x7", n, bz, h1, w1, 128, 7, 7, 1, False, iters, pc)
+    add("update convf2 3x3", n, 128, h1, w1, 64, 3, 3, 1, True, iters, pc)
+    add("update conv 3x3", n, 256, h1, w1, cfg.motion_dim - bz, 3, 3, 1,
+        True, iters, pc)
+    for kh, kw in ((1, 5), (5, 1)):
+        add(f"update gru fused [z|r|q_x] {kh}x{kw}", n, gin, h1, w1, 3 * d,
+            kh, kw, 1, False, iters, pc)
+        add(f"update gru r*h {kh}x{kw}", n, d, h1, w1, d, kh, kw, 1, False,
+            iters, pc)
+    add("update bezier_head.conv1 / mask_0 3x3", n, d, h1, w1, 256, 3, 3, 1,
+        True, 2 * iters, pc)
+    add("update bezier_head.conv2 3x3", n, 256, h1, w1, bz, 3, 3, 1, False,
+        iters, pc)
+    return list(rows.values())
+
+
+def expected_launches(cfg, n=1, h=H, w=W, iters=ITERS):
+    """Launches of each kernel in one forward, from the copied gates."""
+    want = dict.fromkeys(kernels.KERNELS, 0)
+    for row in flagship_convs(cfg, n, h, w, iters):
+        if row["kernel"]:
+            want[row["kernel"]] += row["per_forward"]
+    q8 = cfg.lookup_method == "pallas_q8"
+    for lvl in range(max(cfg.levels_per_target)):
+        onehot = 0 <= cfg.onehot_from_level <= lvl
+        if cfg.lookup_method in KERNEL_METHODS and not onehot:
+            q8_here = q8 and quantizes((h // 8) >> lvl)
+            want[klookup.Q8_NAME if q8_here else klookup.NAME] += iters
+    return want
+
+
+def conv_inputs(row, seed):
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    N, C, hh, ww = row["shape"]
+    x = torch.randn(N, C, hh, ww, generator=gen, device="cuda").bfloat16()
+    fan = C * row["kh"] * row["kw"]
+    w = (torch.randn(row["cout"], C, row["kh"], row["kw"], generator=gen,
+                     device="cuda") / fan ** 0.5)
+    b = 0.1 * torch.randn(row["cout"], generator=gen, device="cuda")
+    return x, w, b
+
+
+def _conv_call(row, x, w, b):
+    if row["stride"] == 1:
+        return lambda: kconv.conv2d(x, w, b, row["relu"])
+    return lambda: kstem.stem_conv(x, w, b)
+
+
+def check_conv(row, seed, timing=True):
+    """A conv kernel vs its plain twin at one flagship shape (output to
+    TOL of max |plain|), and the gradients through its autograd.Function
+    vs autograd through the plain formulation of the JAX package's VJP;
+    returns the phase-3c record."""
+    x, w, b = conv_inputs(row, seed)
+    stride, relu = row["stride"], row["relu"]
+    got = _conv_call(row, x, w, b)()
+    torch.cuda.synchronize()
+    want = conv_common.conv_plain(x, w, b, stride, relu)
+    check(got.dtype == want.dtype == torch.bfloat16
+          and got.shape == want.shape, f"conv output {got.dtype} {got.shape}")
+    err = (got.float() - want.float()).abs().max().item()
+    ref = want.float().abs().max().item()
+    tol = TOL[torch.bfloat16]
+    # gradients: kernel forward + the VJP against autograd of the plain
+    # bf16 formulation (the same gradient function: equal)
+    gen = torch.Generator(device="cuda").manual_seed(seed + 1)
+    g = torch.randn(got.shape, generator=gen, device="cuda").bfloat16()
+    leaves = [t.detach().requires_grad_(True) for t in (x, w, b)]
+    _conv_call(row, *leaves)().backward(g)
+    ref_leaves = [t.detach().requires_grad_(True) for t in (x, w, b)]
+    conv_common.conv_ref_bf16(*ref_leaves, stride, relu).backward(g)
+    grad_err = max(((a.grad.float() - r.grad.float()).abs().max()
+                    / r.grad.float().abs().max().clamp(min=1e-30)).item()
+                   for a, r in zip(leaves, ref_leaves))
+    N, C, hh, ww = row["shape"]
+    ho, wo = (hh - 1) // stride + 1, (ww - 1) // stride + 1
+    flops = 2 * N * ho * wo * row["cout"] * C * row["kh"] * row["kw"]
+    nbytes = 2 * (x.numel() + w.numel() + N * row["cout"] * ho * wo) + 4 * (
+        row["cout"])
+    rec = {**row, "max_abs_err": err, "max_abs_ref": ref, "tol_rel": tol,
+           "grad_rel_err": grad_err, "flops": flops, "bytes": nbytes,
+           "ok": err <= tol * ref and grad_err <= tol}
+    if not timing:
+        return rec
+    wb, bb = w.bfloat16(), b.bfloat16()
+    pad = (row["kh"] // 2, row["kw"] // 2)
+    call = _conv_call(row, x, w, b)
+    rec.update(
+        ms=time_ms(call),
+        plain_ms=time_ms(lambda: conv_common.conv_plain(x, w, b, stride,
+                                                        relu)),
+        bound_ms=max(flops / BF16_FLOPS, nbytes / HBM_BYTES_PER_S) * 1e3,
+        bound_by=("operations" if flops / BF16_FLOPS
+                  > nbytes / HBM_BYTES_PER_S else "bytes"),
+        library_ms=time_ms(lambda: F.conv2d(x, wb, bb, stride, pad)),
+        library_note="F.conv2d in bf16 (cuDNN), bias in bf16")
+    return rec
+
+
+class plain_twins:
+    """Within the block, every kernel of the model's path runs its plain
+    PyTorch twin on the card instead (the comparison path of the parity
+    phases; the port itself has no such switch)."""
+
+    def __enter__(self):
+        from bflow_tpu_torch.models import corr as mcorr
+
+        self._saved = [(kconv, "_fwd_cuda", kconv._fwd_cuda),
+                       (kstem, "_fwd_cuda", kstem._fwd_cuda),
+                       (mcorr, "corr_lookup_level", mcorr.corr_lookup_level),
+                       (mcorr, "corr_lookup_level_q8",
+                        mcorr.corr_lookup_level_q8)]
+        kconv._fwd_cuda = conv_common.conv_plain
+        kstem._fwd_cuda = conv_common.conv_plain
+        mcorr.corr_lookup_level = klookup.corr_lookup_level_plain
+        mcorr.corr_lookup_level_q8 = klookup.corr_lookup_level_q8_plain
+        return self
+
+    def __exit__(self, *exc):
+        for mod, name, fn in self._saved:
+            setattr(mod, name, fn)
+
+
+def opt_in_config():
+    """The flagship with the JAX package's opt-in modes switched on."""
+    return dataclasses.replace(bt.flagship_config(),
+                               lookup_method="pallas_q8", pallas_stem=True,
+                               pallas_conv=True)
+
+
+def conv_summary(name, replaces, recs, counts):
+    """A conv kernel's entry of the kernels line: times per flagship
+    forward (each shape's time x its launches per forward)."""
+    def per_forward(key):
+        return sum(r[key] * r["per_forward"] for r in recs)
+
+    ops = sum(r["flops"] * r["per_forward"] for r in recs) / BF16_FLOPS
+    mem = sum(r["bytes"] * r["per_forward"] for r in recs) / HBM_BYTES_PER_S
+    return {"name": name, "route": "cuda",
+            "source": f"bflow_tpu_torch/csrc/{name}.cu",
+            "replaces": replaces, "launches": counts[name],
+            "max_abs_err": max(r["max_abs_err"] for r in recs),
+            "ms": per_forward("ms"), "plain_ms": per_forward("plain_ms"),
+            "bound_ms": per_forward("bound_ms"),
+            "bound_by": "operations" if ops > mem else "bytes",
+            "library_ms": per_forward("library_ms"),
+            "per": "flagship forward", "shapes": len(recs)}
 
 
 # ---------------------------------------------------------------------------
@@ -590,24 +804,25 @@ def main() -> int:
             check(rec["ok"], f"lookup backward kernel disagrees: {rec}")
             per_level_bwd.append(rec)
 
-    # 3c. yardsticks and bounds of the TPU kernels not ported yet
-    q8_bytes, q8_ms = q8_lookup_bound(args.seed)
-    emit("yardstick", row=2, kernel="corr_lookup_v3.py _fwd_kernel quant",
-         bound_bytes=q8_bytes, bound_ms=q8_ms, bound_by="bytes")
-    # (TPU kernel row, what, N, C in, H, W, C out, window, stride):
-    # fnet_ev runs the five 15-bin slices as one batch of 5, cnet the 15
-    # context bins and the frame
-    convs = [
-        (5, "fnet_ev stem 7x7/s2", 5, 15, H, W, 64, 7, 2),
-        (5, "cnet stem 7x7/s2", 1, 18, H, W, 64, 7, 2),
-        (5, "fnet_ev layer2_0.conv1 3x3/s2", 5, 64, H // 2, W // 2, 96, 3,
-         2),
-        (6, "fnet_ev layer1 3x3", 5, 64, H // 2, W // 2, 64, 3, 1),
-        (6, "fnet_ev layer2 3x3", 5, 96, H // 4, W // 4, 96, 3, 1),
-        (6, "fnet_ev layer3 3x3", 5, 128, H // 8, W // 8, 128, 3, 1),
-    ]
-    for row, what, *shape in convs:
-        emit("yardstick", row=row, **conv_yardstick(what, *shape))
+    # 3c. the opt-in kernels at every flagship shape they take
+    opt_cfg = opt_in_config()
+    per_q8 = []
+    for lvl, (Tl, hl, wl) in enumerate(LEVELS):
+        if not quantizes(hl):
+            continue
+        rec = check_q8_level(Tl, hl, wl, args.seed + lvl)
+        rec["level"] = lvl
+        emit("kernel", name=klookup.Q8_NAME, **rec)
+        check(rec["ok"], f"int8 lookup kernel disagrees: {rec}")
+        per_q8.append(rec)
+    per_conv = {kconv.NAME: [], kstem.NAME: []}
+    for i, row in enumerate(flagship_convs(opt_cfg)):
+        if row["kernel"] is None:
+            continue
+        rec = check_conv(row, args.seed + i)
+        emit("kernel", name=row["kernel"], **rec)
+        check(rec["ok"], f"{row['kernel']} disagrees: {rec}")
+        per_conv[row["kernel"]].append(rec)
 
     # 4. the flagship forward through the kernel
     cfg = bt.flagship_config()
@@ -649,6 +864,39 @@ def main() -> int:
             "forward"))
     del model
 
+    # 4b. the opt-in flagship forward: q8 lookup, stem and conv kernels
+    model = bt.build_model(opt_cfg, device="cuda", seed=args.seed)
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launch_counts()
+    for _ in range(warmup):
+        low, up = run_forward(model, voxel, images)
+    opt_times = []
+    for _ in range(timed):
+        t0 = time.perf_counter()
+        low, up = run_forward(model, voxel, images)
+        opt_times.append((time.perf_counter() - t0) * 1e3)
+    opt_counts = kernels.launch_counts()
+    opt_per_fwd = {k: v / n_fwd for k, v in opt_counts.items()}
+    opt_ms = statistics.median(opt_times)
+    want_opt = expected_launches(opt_cfg)
+    emit("opt_forward", config="flagship + pallas_q8 + pallas_stem + "
+                              "pallas_conv, bf16",
+         batch=1, height=H, width=W, iters=ITERS, forwards=n_fwd,
+         ms_per_forward=opt_ms, ms_all=opt_times, fields_per_s=1e3 / opt_ms,
+         max_memory_allocated=torch.cuda.max_memory_allocated(),
+         launches=opt_counts, launches_per_forward=opt_per_fwd,
+         launches_per_forward_derived=want_opt,
+         finite=bool(torch.isfinite(up.params).all()))
+    check(bool(torch.isfinite(up.params).all())
+          and bool(torch.isfinite(low.params).all()), "opt-in: non-finite")
+    check(opt_per_fwd == want_opt,
+          f"opt-in launches per forward {opt_per_fwd}, derived {want_opt}")
+    if args.profile:
+        emit("profile", path="opt_forward", **profile_run(
+            lambda: run_forward(model, voxel, images), opt_ms, args.profile,
+            "opt_forward"))
+    del model
+
     # 5. kernel path vs plain path on the card
     for precision, iters, bound in (("bfloat16", ITERS, 5e-2),
                                     ("float32", 2, 1e-4)):
@@ -664,7 +912,25 @@ def main() -> int:
         check(all(v < bound for v in rel.values()),
               f"kernel path vs plain path {precision}: {rel}")
         del kern, plain
-    del voxel, images
+
+    # 5b. the opt-in path: kernels vs their plain twins (the same
+    # function), and, without a bound, vs the default flagship path
+    kern = damp_head(bt.build_model(opt_cfg, "cuda", args.seed))
+    _, up_k = run_forward(kern, voxel, images)
+    with plain_twins():
+        _, up_p = run_forward(kern, voxel, images)
+    default = bt.build_model(cfg, "cuda", args.seed)
+    default.load_state_dict(kern.state_dict())
+    _, up_d = run_forward(default, voxel, images)
+    rel = {str(t): rel_diff(up_k.flow_at(t), up_p.flow_at(t))
+           for t in (0.5, 1.0)}
+    rel_default = {str(t): rel_diff(up_k.flow_at(t), up_d.flow_at(t))
+                   for t in (0.5, 1.0)}
+    emit("opt_parity", precision="bfloat16", iters=ITERS, bound=5e-2,
+         rel_diff=rel, rel_diff_vs_default_path=rel_default)
+    check(all(v < 5e-2 for v in rel.values()),
+          f"opt-in kernel path vs plain twins: {rel}")
+    del kern, default, voxel, images
 
     # 6. the DSEC training step: f32, 12 iterations, B=3 at 288x384
     from bflow_tpu_torch.train import TaskConfig, TrainState, make_train_step
@@ -738,23 +1004,68 @@ def main() -> int:
           f"bf16 step launches {bf16_counts}")
     del model, state, step
 
+    # 6c. one bf16 flagship step with the stem and conv kernels (lookup
+    # 'pallas': the int8 lookup has no gradient), then its gradients
+    # against the same step through the plain twins: within 5e-2 of each
+    # weight's max, or within the default path's own distance from the
+    # twins where bf16 noise is larger than that (the stems' weights,
+    # whose gradients cancel through instance norm)
+    conv_cfg = dataclasses.replace(opt_cfg, lookup_method="pallas")
+    model = damp_head(bt.build_model(conv_cfg, device="cuda",
+                                     seed=args.seed))
+    state = TrainState.create(model, TRAINING)
+    step = make_train_step(model, task, state.optimizer, state.scheduler)
+    kernels.reset_launch_counts()
+    metrics = step(batch)
+    torch.cuda.synchronize()
+    conv_counts = kernels.launch_counts()
+    conv_loss = metrics["train/l1_seq_loss"][0].item()
+    want_conv = expected_launches(conv_cfg, TRAIN_B, TRAIN_H, TRAIN_W,
+                                  conv_cfg.iters_train)
+    want_conv[klookup.BWD_NAME] = want_conv[klookup.NAME]
+    finite = grads_finite(model)
+    del model, state, step
+    torch.backends.cudnn.deterministic = True
+    lk, gk = step_grads(conv_cfg, batch, args.seed, True)
+    lp, gp = step_grads(conv_cfg, batch, args.seed, True, plain=True)
+    # the bf16 noise floor of the step: the default path (cuDNN convs,
+    # bf16 bias) against the same plain twins
+    _, gd = step_grads(dataclasses.replace(conv_cfg, pallas_stem=False,
+                                           pallas_conv=False),
+                       batch, args.seed, True)
+    torch.backends.cudnn.deterministic = False
+    worst, where = grad_rel(gk, gp)
+    floor, floor_where = grad_rel(gd, gp)
+    bound = max(5e-2, floor)
+    emit("train_conv", loss=conv_loss, launches=conv_counts,
+         launches_derived=want_conv, grads_finite=finite,
+         loss_rel_vs_plain=abs(lk - lp) / abs(lp), grad_rel_max=worst,
+         worst_param=where, default_path_grad_rel_max=floor,
+         default_path_worst_param=floor_where, bound=bound)
+    check(np.isfinite(conv_loss) and finite, "bf16 conv-kernel step")
+    check(conv_counts == want_conv,
+          f"conv-kernel step launches {conv_counts}, derived {want_conv}")
+    check(worst <= bound, f"conv-kernel step gradients vs plain: {worst}")
+
     # 7. train parity: kernel path vs gather path, one step's gradients
     for precision, iters, damp, bound in (("float32", 2, False, 1e-4),
                                           ("bfloat16", ITERS, True, 5e-2)):
         c = dataclasses.replace(tcfg, corr_precision=precision,
                                 compute_dtype=precision, iters_train=iters)
-        loss_rel, (grad_rel, where), (floor, _) = train_parity(
+        loss_rel, (grad_worst, where), (floor, _) = train_parity(
             c, batch, args.seed, damp)
         loss_bound = 1e-5 if precision == "float32" else bound
         emit("train_parity", precision=precision, iters=iters,
-             loss_rel=loss_rel, grad_rel_max=grad_rel, worst_param=where,
+             loss_rel=loss_rel, grad_rel_max=grad_worst, worst_param=where,
              gather_repeat_grad_rel_max=floor,
              bounds={"loss": loss_bound, "grad": bound})
-        check(loss_rel <= loss_bound and grad_rel <= bound,
-              f"train parity {precision}: {loss_rel} {grad_rel}")
+        check(loss_rel <= loss_bound and grad_worst <= bound,
+              f"train parity {precision}: {loss_rel} {grad_worst}")
 
-    # 8. kernels line: one launch of each kernel per level, so the
-    # per-iteration cost is the sum over the four bf16 level records
+    # 8. kernels line: the lookups one launch per level, so their cost
+    # per iteration is the sum over the level records (bf16 for the
+    # lookup forward and backward); the convs per forward, the sum over
+    # their shapes of time x launches per forward
     def bf16_sum(recs, key):
         return sum(r[key] for r in recs if r["dtype"] == "bfloat16")
 
@@ -786,7 +1097,24 @@ def main() -> int:
         "bound_ms": bf16_sum(per_level_bwd, "bound_ms"),
         "bound_by": "bytes",
         "library_ms": bf16_sum(per_level_bwd, "library_ms"),
-    }]
+    }, {
+        "name": klookup.Q8_NAME,
+        "route": "cuda",
+        "source": "bflow_tpu_torch/csrc/corr_lookup_q8.cu",
+        "replaces": "bflow_tpu/ops/pallas/corr_lookup_v3.py:238",
+        "variant": "quant=True (lookup_level_slab_q8, :794)",
+        "launches": opt_counts[klookup.Q8_NAME],
+        "max_abs_err": max(r["max_abs_err"] for r in per_q8),
+        "ms": sum(r["ms"] for r in per_q8),
+        "plain_ms": sum(r["plain_ms"] for r in per_q8),
+        "bound_ms": sum(r["bound_ms"] for r in per_q8),
+        "bound_by": "bytes",
+        "library_ms": None,
+        "library_note": per_q8[0]["library_note"],
+    }, conv_summary(kstem.NAME, "bflow_tpu/ops/pallas/stem_conv.py:114",
+                    per_conv[kstem.NAME], opt_counts),
+        conv_summary(kconv.NAME, "bflow_tpu/ops/pallas/conv3x3.py:69",
+                     per_conv[kconv.NAME], opt_counts)]
     print(json.dumps({"kernels": summary}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

@@ -206,9 +206,14 @@ def test_corr_lookup_matches_jax_gather(method, concat):
 
 
 def test_corr_lookup_refuses_unported_methods():
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    """Every lookup method of the JAX package is ported now
+    (tests/test_torch_corr_q8.py); a name it does not have, such as the
+    removed 'pallas_v2', is refused."""
+    assert set(tcorr.METHODS) == {"auto", "pallas", "pallas_q8", "gather",
+                                  "onehot"}
+    with pytest.raises(NotImplementedError, match="lookup methods"):
         tcorr.corr_lookup([], torch.zeros(1, 1, 2, 2, 2), 4,
-                          method="onehot")
+                          method="pallas_v2")
 
 
 # the v6 forward (_fwd_kernel_v6, selected by BFLOW_LOOKUP_V6=1, read at

@@ -238,3 +238,76 @@ def test_lookup_kernel_gradients_on_gpu(cuda_device, vol_grad):
         assert (vol.grad - want_v).abs().max() <= 1e-5 * want_v.abs().max()
     else:
         assert vol.grad is None
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("level", range(2))
+def test_q8_lookup_kernel_matches_plain_on_gpu(cuda_device, level):
+    """The int8 lookup kernel against its twin at the two flagship levels
+    that pallas_q8 quantizes (chip_smoke phase 3c)."""
+    import chip_smoke
+
+    from bflow_tpu_torch.kernels import corr_lookup
+
+    Tl, hl, wl = chip_smoke.LEVELS[level]
+    before = corr_lookup.q8_launches
+    rec = chip_smoke.check_q8_level(Tl, hl, wl, seed=level, timing=False)
+    assert corr_lookup.q8_launches == before + 1
+    assert rec["ok"], rec
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kernel", ["conv3x3", "stem_conv"])
+def test_conv_kernels_match_plain_on_gpu(cuda_device, kernel):
+    """Each conv kernel against its twin, and its gradients against the
+    plain formulation's, at every flagship shape the gates send to it
+    (chip_smoke phase 3c)."""
+    import dataclasses
+
+    import chip_smoke
+
+    from bflow_tpu_torch import kernels
+
+    cfg = dataclasses.replace(bt.flagship_config(), pallas_stem=True,
+                              pallas_conv=True)
+    rows = [r for r in chip_smoke.flagship_convs(cfg)
+            if r["kernel"] == kernel]
+    assert len(rows) == {"conv3x3": 17, "stem_conv": 9}[kernel]
+    for i, row in enumerate(rows):
+        before = kernels.launch_counts()[kernel]
+        rec = chip_smoke.check_conv(row, seed=i, timing=False)
+        assert kernels.launch_counts()[kernel] == before + 2  # fwd, grads
+        assert rec["ok"], rec
+
+
+@pytest.mark.cuda
+def test_kernel_wrappers_reject_what_they_do_not_take(cuda_device):
+    """CUDA tensors of a type, layout or shape a kernel does not take
+    raise; nothing falls back to a plain version."""
+    from bflow_tpu_torch.kernels import conv3x3, corr_lookup, stem_conv
+
+    x = torch.zeros(1, 8, 6, 10, device=cuda_device, dtype=torch.bfloat16)
+    w = torch.zeros(16, 8, 3, 3, device=cuda_device)
+    b = torch.zeros(16, device=cuda_device)
+    for fn in (conv3x3.conv2d, stem_conv.stem_conv):
+        with pytest.raises(TypeError):
+            fn(x.float(), w, b)
+        with pytest.raises(ValueError):
+            fn(x, torch.zeros(16, 8, 2, 2, device=cuda_device), b)
+        with pytest.raises(ValueError):
+            fn(x, w, b.cpu())
+    vol = torch.zeros(8, 20, 12, device=cuda_device, dtype=torch.int8)
+    scale = torch.ones(2, device=cuda_device)
+    coords = torch.zeros(8, 2, device=cuda_device)
+    with pytest.raises(TypeError):
+        corr_lookup.corr_lookup_level_q8(vol.bfloat16(), scale, coords, 4)
+    with pytest.raises(ValueError):
+        corr_lookup.corr_lookup_level_q8(vol.transpose(1, 2), scale, coords,
+                                         4)
+    with pytest.raises(ValueError):
+        corr_lookup.corr_lookup_level_q8(vol, torch.ones(3,
+                                                         device=cuda_device),
+                                         coords, 4)
+    with pytest.raises(RuntimeError, match="inference only"):
+        corr_lookup.corr_lookup_level_q8(vol, scale,
+                                         coords.requires_grad_(True), 4)

@@ -21,6 +21,7 @@ import torch
 
 import bflow_tpu_torch as bt
 from bflow_tpu.models import RAFTSpline as JaxRAFTSpline
+from bflow_tpu.models import corr as jcorr
 from bflow_tpu.ops import BezierCurves as JaxBezier
 from bflow_tpu_torch.weights import load_jax_variables
 from test_torch_common import (
@@ -140,16 +141,78 @@ def test_kernel_methods_take_plain_lookup_on_cpu(setup, method):
     assert torch.equal(a.params, b.params)
 
 
-@pytest.mark.parametrize("override", [
-    dict(lookup_method="onehot"), dict(lookup_method="pallas_q8"),
-    dict(onehot_from_level=2), dict(scan_iters=True),
-    dict(onehot_from_level=0), dict(pallas_stem=True),
-    dict(pallas_conv=True),
-])
-def test_unported_options_raise(override):
-    _, tcfg = configs(**override)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        bt.build_model(tcfg, device="cpu")
+# every opt-in override of the JAX config, with what it needs to take
+# effect: the mixed one-hot dispatch a kernel lookup method, the conv
+# kernels' gates the bf16 mode, the q8 gate a level-0 map of >= 17 rows
+# (H >= 136). Bounds, on the low-res and upsampled Bezier parameters:
+# f32 paths 1e-4 (summation order); q8 in f32 compute 2e-2 (its quantized
+# levels' lookups are bf16 on both sides, a few ulps apart:
+# tests/test_torch_corr_q8.py; measured 1.1e-2). The bf16 conv modes are
+# held on the upsampled flow at t = 0.5 and 1 to 5e-2, the bf16 bound of
+# tests/test_precision_modes.py: bf16 roundings of the two packages part
+# at many places (without any kernel, the port's bf16 forward is 1.5e-2
+# from JAX's on the upsampled and 3.8e-2 on the small low-res parameters).
+BF16 = dict(compute_dtype="bfloat16", corr_precision="bfloat16")
+OPT_IN = [
+    (dict(lookup_method="onehot"), {}, 64, 1e-4),
+    (dict(lookup_method="pallas_q8"), {}, 144, 2e-2),
+    (dict(onehot_from_level=2), dict(lookup_method="pallas"), 64, 1e-4),
+    (dict(scan_iters=True), {}, 64, 1e-4),
+    (dict(onehot_from_level=0), dict(lookup_method="pallas"), 64, 1e-4),
+    (dict(pallas_stem=True), dict(iters_test=1, **BF16), 64, 5e-2),
+    (dict(pallas_conv=True), dict(iters_test=1, **BF16), 64, 5e-2),
+]
+
+
+@pytest.mark.parametrize(
+    "override,base,H,bound", OPT_IN,
+    ids=["-".join(f"{k}={v}" for k, v in o.items()) for o, *_ in OPT_IN])
+def test_opt_in_override_matches_jax(setup, override, base, H, bound,
+                                     monkeypatch):
+    """Each option the port used to refuse, against the JAX forward with
+    the same option, its Pallas kernels in interpret mode, damped head."""
+    monkeypatch.setenv("BFLOW_PALLAS_INTERPRET", "1")
+    monkeypatch.setattr(jcorr, "_INTERPRET", True)
+    _, damped, _, _ = setup
+    kw = {**base, **override}
+    jcfg, _ = configs(**kw)
+    voxel, images = make_inputs(jcfg, H=H, W=64, seed=0)
+    want_low, want_up = _jax_forward(damped, voxel, images, **kw)
+    low, up = _port_forward(damped, voxel, images, **kw)
+    assert tuple(up.params.shape) == want_up.shape == (1, H, 64, 2, 2)
+    if kw.get("compute_dtype") == "bfloat16":
+        want = JaxBezier(jnp.asarray(want_up))
+        for t in (0.5, 1.0):
+            assert rel_err(up.flow_at(t).numpy(),
+                           np.asarray(want.flow_at(t))) < bound, t
+    else:
+        assert rel_err(low.params.numpy(), want_low) < bound
+        assert rel_err(up.params.numpy(), want_up) < bound
+
+
+def test_scan_iters_equals_the_loop_bitwise(setup):
+    """scan_iters only changes JAX's compile time; the port runs the same
+    eager loop, so the outputs are equal bit for bit."""
+    _, damped, voxel, images = setup
+    _, a = _port_forward(damped, voxel, images, iters_test=3)
+    _, b = _port_forward(damped, voxel, images, iters_test=3,
+                         scan_iters=True)
+    assert torch.equal(a.params, b.params)
+
+
+def test_pallas_q8_raises_under_autograd(setup):
+    """The int8 lookup has no gradient (nor has the JAX one): a forward
+    that records a graph is refused with a clear error; test_mode and
+    no_grad forwards run."""
+    variables, _, voxel, images = setup
+    model = _port_model(variables, lookup_method="pallas_q8")
+    v, i = torch.from_numpy(voxel), torch.from_numpy(images)
+    with pytest.raises(RuntimeError, match="inference only"):
+        model(v, i)
+    with torch.no_grad():
+        preds = model(v, i)
+    _, up = model(v, i, test_mode=True)
+    assert torch.equal(preds[-1].params, up.params)
 
 
 def test_train_forward_not_ported(setup):
