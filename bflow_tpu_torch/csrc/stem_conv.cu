@@ -7,22 +7,24 @@
 // kernel regroups the strided taps over a 2x2 space-to-depth view so that
 // the MXU sees a deep contraction; on the tensor cores the strided gather
 // needs no regrouping, so this is the stride-2 instance of the implicit
-// GEMM in conv_igemm.cuh (which says what bounds it and how it is laid
-// out). The stems' channel counts (3, 15, 18) are padded to 8, 16, 24 by
-// the wrapper, so K is 392 to 1,176: 13 to 37 steps of 32.
+// GEMM in conv_igemm.cuh (which says what bounds each shape class and how
+// it is laid out), channels-last in and out. The stems' channel counts (3,
+// 15, 18) are padded to 8, 16, 24 by the wrapper, so K is 392 to 1,176: 7
+// to 19 steps of 64, the last one zero-filled past K.
 
 #include "conv_igemm.cuh"
 
 extern "C" {
 
 // x (n, h, w, cp) bf16 with cp a multiple of 8, w (o, kh, kw, cp) bf16,
-// bias (o,) f32, out (n, o, (h-1)/2+1, (w-1)/2+1) bf16, all contiguous.
-// Returns cudaGetLastError().
+// bias (o,) f32, out (n, (h-1)/2+1, (w-1)/2+1, o) bf16, all dense
+// channels-last and 16-byte aligned; (bm, bn, split) is the tile variant
+// of conv_igemm::launch. Returns a cudaError_t.
 int stem_conv_bf16(const void* x, const void* w, const void* bias, void* out,
                    int n, int cp, int h, int wd, int o, int kh, int kw,
-                   void* stream) {
-  return conv_igemm::launch<2>(x, w, bias, out, n, cp, h, wd, o, kh, kw, 0,
-                               stream);
+                   int relu, int bm, int bn, int split, void* stream) {
+  return conv_igemm::launch<2>(x, w, bias, out, n, cp, h, wd, o, kh, kw, relu,
+                               bm, bn, split, stream);
 }
 
 }  // extern "C"

@@ -131,9 +131,13 @@ def launch(fn: ctypes._CFuncPtr, device, *args) -> None:
     last) and raise on the cudaGetLastError() it returns."""
     import torch
 
-    with torch.cuda.device(device):
-        stream = torch.cuda.current_stream(device).cuda_stream
-        err = fn(*args, stream)
+    current = torch.cuda.current_device()
+    index = current if device.index is None else device.index
+    if index == current:
+        err = fn(*args, torch._C._cuda_getCurrentRawStream(index))
+    else:
+        with torch.cuda.device(index):
+            err = fn(*args, torch._C._cuda_getCurrentRawStream(index))
     if err != 0:
         raise RuntimeError(f"{fn.__name__} launch failed: CUDA error {err}")
 

@@ -4,17 +4,21 @@ and the dispatch gate.
 
 Counterpart of the TPU kernel bflow_tpu/ops/pallas/conv3x3.py:_kernel
 (conv2d_pallas and its custom VJP). The CUDA source is csrc/conv3x3.cu
-over csrc/conv_igemm.cuh. ``supported`` is a copy of the JAX package's
+over csrc/conv_igemm.cuh; conv_common.py holds the tile plan, the
+prepared-weight cache and the launch. The output is channels-last in
+memory. ``supported`` is a copy of the JAX package's
 gate: the model sends a conv to the kernel exactly where the JAX package
 sends it to the Pallas kernel, so the two round in the same places.
 """
 
 from __future__ import annotations
 
+import functools
+
 import torch
 
 from bflow_tpu_torch.kernels.conv_common import (
-    ConvFn,
+    apply,
     check,
     conv_plain,
     launch_cuda,
@@ -70,19 +74,24 @@ def conv2d_plain(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
     return conv_plain(x, w, b, 1, relu)
 
 
-def _fwd_cuda(x, w, b, stride, relu):
+def _fwd_cuda(x, w, b, stride, relu, plan=None):
     global launches
-    out = launch_cuda(NAME, x, w, b, stride, relu)
+    out = launch_cuda(NAME, x, w, b, stride, relu, plan)
     launches += 1
     return out
 
 
 def conv2d(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
-           relu: bool = False) -> torch.Tensor:
-    """(N, C, H, W) bf16 x, (O, C, kh, kw) w, (O,) b -> (N, O, H, W) bf16,
-    odd kh and kw, SAME padding. CUDA tensors go through the kernel, CPU
-    tensors through conv2d_plain; the gradient is the plain bf16 conv's
-    either way (conv_common.ConvFn)."""
+           relu: bool = False, plan=None) -> torch.Tensor:
+    """(N, C, H, W) bf16 x, (O, C, kh, kw) w, (O,) b -> (N, O, H, W) bf16
+    in channels-last strides, odd kh and kw, SAME padding. x may lie in
+    any layout; channels-last with C a multiple of 8 is read in place.
+    CUDA tensors go through the kernel (``plan``: a conv_common.TilePlan
+    to force, by default conv_common.tile_plan's), CPU tensors through
+    conv2d_plain; the gradient is the plain bf16 conv's either way
+    (conv_common.ConvFn)."""
     check(x, w, b)
     fwd = conv_plain if x.device.type == "cpu" else _fwd_cuda
-    return ConvFn.apply(x, w, b, 1, relu, fwd)
+    if plan is not None and fwd is _fwd_cuda:
+        fwd = functools.partial(_fwd_cuda, plan=plan)
+    return apply(fwd, x, w, b, 1, relu)

@@ -4,17 +4,21 @@ kernel's wrapper, its plain PyTorch version and the dispatch gate.
 Counterpart of the TPU kernel bflow_tpu/ops/pallas/stem_conv.py:
 _stem_kernel (stem_conv_pallas and its custom VJP): the encoders' 7x7/s2
 stems, and under pallas_conv the 3x3/s2 convs that open stages 2 and 3.
-The CUDA source is csrc/stem_conv.cu over csrc/conv_igemm.cuh.
+The CUDA source is csrc/stem_conv.cu over csrc/conv_igemm.cuh;
+conv_common.py holds the tile plan, the prepared-weight cache and the
+launch. The output is channels-last in memory.
 ``supported`` is a copy of the JAX package's gate, so the model sends a
 conv to the kernel exactly where the JAX package does.
 """
 
 from __future__ import annotations
 
+import functools
+
 import torch
 
 from bflow_tpu_torch.kernels.conv_common import (
-    ConvFn,
+    apply,
     check,
     conv_plain,
     launch_cuda,
@@ -73,19 +77,24 @@ def stem_conv_plain(x: torch.Tensor, w: torch.Tensor,
     return conv_plain(x, w, b, 2)
 
 
-def _fwd_cuda(x, w, b, stride, relu):
+def _fwd_cuda(x, w, b, stride, relu, plan=None):
     global launches
-    out = launch_cuda(NAME, x, w, b, stride, relu)
+    out = launch_cuda(NAME, x, w, b, stride, relu, plan)
     launches += 1
     return out
 
 
-def stem_conv(x: torch.Tensor, w: torch.Tensor,
-              b: torch.Tensor) -> torch.Tensor:
+def stem_conv(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
+              plan=None) -> torch.Tensor:
     """(N, C, H, W) bf16 x, (O, C, kh, kw) w, (O,) b -> (N, O, H/2, W/2)
-    bf16 (ceil for odd sizes), odd kh and kw, SAME padding. CUDA tensors
-    go through the kernel, CPU tensors through stem_conv_plain; the
-    gradient is the plain bf16 conv's either way (conv_common.ConvFn)."""
+    bf16 (ceil for odd sizes) in channels-last strides, odd kh and kw, SAME
+    padding. x may lie in any layout; channels-last with C a multiple of 8
+    is read in place. CUDA tensors go through the kernel (``plan``: a
+    conv_common.TilePlan to force, by default conv_common.tile_plan's),
+    CPU tensors through stem_conv_plain; the gradient is the plain bf16
+    conv's either way (conv_common.ConvFn)."""
     check(x, w, b)
     fwd = conv_plain if x.device.type == "cpu" else _fwd_cuda
-    return ConvFn.apply(x, w, b, 2, False, fwd)
+    if plan is not None and fwd is _fwd_cuda:
+        fwd = functools.partial(_fwd_cuda, plan=plan)
+    return apply(fwd, x, w, b, 2, False)

@@ -16,7 +16,10 @@ The opt-in conv kernels follow the JAX package's dispatch
 the 7x7/s2 stem, under ``pallas_conv`` every 3x3 (stride 1: the conv3x3
 kernel, stride 2: the stem kernel) goes through a CUDA kernel wherever the
 copied JAX gate passes on the input's NHWC shape; elsewhere it stays on
-F.conv2d.
+F.conv2d. The kernels return channels-last memory (logical NCHW), and
+nothing here asks for a memory format: the norms, ReLUs, residual adds and
+the F.conv2d calls between the kernels keep the layout they are given, so
+each kernel reads its input in place.
 """
 
 from __future__ import annotations
@@ -113,9 +116,17 @@ class Conv1x1(Conv2d):
 
 
 class GroupNorm(nn.GroupNorm):
+    """GroupNorm in f32, cast back. F.group_norm answers NCHW-contiguous;
+    a channels-last input (the conv kernels' output) gets its layout back
+    in the cast, so the next conv reads it in place."""
+
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return F.group_norm(x.float(), self.num_groups, self.weight,
-                            self.bias, self.eps).to(x.dtype)
+        y = F.group_norm(x.float(), self.num_groups, self.weight, self.bias,
+                         self.eps)
+        if not x.is_contiguous() and x.is_contiguous(
+                memory_format=torch.channels_last):
+            return y.to(x.dtype, memory_format=torch.channels_last)
+        return y.to(x.dtype)
 
 
 class BatchNorm(nn.BatchNorm2d):

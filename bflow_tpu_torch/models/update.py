@@ -10,7 +10,9 @@ Under ``pallas_conv`` the convs follow the JAX package's dispatch
 (bflow_tpu/models/update.py): every conv takes the conv3x3 kernel where
 the copied JAX gate passes (models/extractor.py:conv2d), convc2,
 convf2, conv, mask_0 and bezier_head.conv1 with the ReLU fused, and the
-GRU runs the JAX package's fused gate decomposition.
+GRU runs the JAX package's fused gate decomposition. The kernels' outputs
+are channels-last in memory; the concatenations, gates and slices between
+them keep that layout.
 """
 
 from __future__ import annotations
@@ -21,6 +23,7 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from bflow_tpu_torch.kernels.conv_common import cached
 from bflow_tpu_torch.models.config import RaftSplineConfig
 from bflow_tpu_torch.models.extractor import Conv2d, conv2d
 
@@ -69,20 +72,37 @@ class SepConvGRU(nn.Module):
                     cin, hidden_dim, k, padding=pad,
                     compute_dtype=compute_dtype))
 
+    def _fused_params(self, suffix: str):
+        """The fused pass's two (weight, bias) pairs. Where no gradient
+        can be asked for they are made once per parameter value
+        (conv_common.cached), so the kernels' prepared-weight cache sees
+        the same tensors again; under autograd they are built in the
+        graph."""
+        d = self.hidden_dim
+        cz, cr, cq = (getattr(self, f"conv{g}{suffix}") for g in "zrq")
+        sources = (cz.weight, cr.weight, cq.weight, cz.bias, cr.bias,
+                   cq.bias)
+
+        def make():
+            kq_x = torch.cat([torch.zeros_like(cq.weight[:, :d]),
+                              cq.weight[:, d:]], dim=1)
+            return (torch.cat([cz.weight, cr.weight, kq_x]),
+                    torch.cat([cz.bias, cr.bias, cq.bias]),
+                    cq.weight[:, :d].contiguous(), torch.zeros_like(cq.bias))
+
+        if torch.is_grad_enabled() and any(t.requires_grad for t in sources):
+            return make()
+        return cached(("gru_fused", suffix), sources, make)
+
     def _fused_pass(self, h: torch.Tensor, x: torch.Tensor,
                     suffix: str) -> torch.Tensor:
         d, cdt, uk = self.hidden_dim, self.compute_dtype, self.use_kernel
-        cz, cr, cq = (getattr(self, f"conv{g}{suffix}") for g in "zrq")
-        kq_x = torch.cat([torch.zeros_like(cq.weight[:, :d]),
-                          cq.weight[:, d:]], dim=1)
-        zrq = conv2d(torch.cat([h, x], dim=1),
-                     torch.cat([cz.weight, cr.weight, kq_x]),
-                     torch.cat([cz.bias, cr.bias, cq.bias]), 1, cq.padding,
-                     cdt, uk)
+        pad = getattr(self, f"convq{suffix}").padding
+        w_zrq, b_zrq, w_qh, b_qh = self._fused_params(suffix)
+        zrq = conv2d(torch.cat([h, x], dim=1), w_zrq, b_zrq, 1, pad, cdt, uk)
         z = torch.sigmoid(zrq[:, :d])
         r = torch.sigmoid(zrq[:, d:2 * d])
-        q_h = conv2d(r * h.to(r.dtype), cq.weight[:, :d],
-                     torch.zeros_like(cq.bias), 1, cq.padding, cdt, uk)
+        q_h = conv2d(r * h.to(r.dtype), w_qh, b_qh, 1, pad, cdt, uk)
         q = torch.tanh(q_h + zrq[:, 2 * d:])
         return (1.0 - z) * h.to(z.dtype) + z * q
 

@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch port (bflow_tpu_torch) on one NVIDIA GPU.
 
-    python3 chip_smoke.py [--profile DIR] [--seed N]
+    python3 chip_smoke.py [--profile DIR] [--seed N] [--conv-sweep]
 
 Run from the repository root, on a machine with a CUDA GPU and the CUDA
 toolkit (nvcc). Phases, each printing JSON lines:
@@ -13,14 +13,18 @@ toolkit (nvcc). Phases, each printing JSON lines:
                   lookup forward and backward at the flagship level shapes
                   (f32 and bf16); (3c) the int8 lookup at the two levels
                   pallas_q8 quantizes, and the stem and conv3x3 kernels at
-                  every flagship shape their gates pass, gradients through
-                  their autograd.Functions included
+                  every flagship shape their gates pass, on channels-last
+                  and NCHW-contiguous inputs, with the wrapper's layout
+                  copies and prepared weights counted and gradients
+                  through their autograd.Functions included
   4. forward      the flagship RAFT-Spline inference forward (480x640, B=1,
                   bf16, 12 iterations) through build_model(); launch counts
                   reset before and read after; ms/forward, fields/s, memory;
                   (4b, opt_forward) the same with pallas_q8, pallas_stem and
                   pallas_conv, launches held to the count the copied gates
-                  give
+                  give, layout copies to one per conv whose channel count
+                  is not a multiple of 8; (opt_vs_default) the two paths'
+                  walls again, 12 forwards each taken in turns
   5. parity       kernel path vs plain path on the same seeded weights;
                   (5b, opt_parity) the opt-in path vs its plain twins, and
                   vs the default path (recorded)
@@ -36,6 +40,9 @@ and, as the last line, {"ok": true, "device": {...}}. Any failure exits
 nonzero before that line; so does a machine without CUDA. --profile DIR
 adds a torch.profiler breakdown of one forward and one train step (kernels
 by device time, idle share) and writes their chrome traces into DIR.
+--conv-sweep runs phases 1 and 2, then times every tile variant of the conv
+kernels at every flagship conv shape beside the one the tile plan picks,
+and stops.
 """
 
 from __future__ import annotations
@@ -44,6 +51,7 @@ import argparse
 import contextlib
 import dataclasses
 import json
+import re
 import statistics
 import subprocess
 import sys
@@ -415,6 +423,7 @@ def profile_run(fn, unprofiled_ms: float, out_dir: str, name: str,
             "lookup_bwd": share(klookup.BWD_NAME),
             "lookup_q8": share(klookup.Q8_NAME),
             "conv_kernels": share("conv_igemm"),
+            "direct_copy": share("direct_copy"),
             "memset_and_fill": share("Memset", "memset", "FillFunctor"),
             "add": share("AddFunctor", "CUDAFunctor_add"),
             "top": [{"name": k[:100], "device_ms": us / 1e3, "calls": n}
@@ -653,12 +662,21 @@ def _conv_call(row, x, w, b):
 
 def check_conv(row, seed, timing=True):
     """A conv kernel vs its plain twin at one flagship shape (output to
-    TOL of max |plain|), and the gradients through its autograd.Function
-    vs autograd through the plain formulation of the JAX package's VJP;
-    returns the phase-3c record."""
-    x, w, b = conv_inputs(row, seed)
+    TOL of max |plain|), on a channels-last x (what the model hands it)
+    and on an NCHW-contiguous one (bit-equal); what the wrapper does
+    around the kernel: a channels-last output, a second call with no
+    weight prepared and no layout copy (one copy where C is not a multiple
+    of 8) and a bit-equal result, a prepared weight made anew after an
+    in-place update of the parameter; and the gradients through its
+    autograd.Function vs autograd through the plain formulation of the JAX
+    package's VJP. Returns the phase-3c record."""
+    x, w, b = conv_inputs(row, seed)  # x NCHW-contiguous
+    x_cl = x.contiguous(memory_format=torch.channels_last)
     stride, relu = row["stride"], row["relu"]
-    got = _conv_call(row, x, w, b)()
+    N, C, hh, ww = row["shape"]
+    ho, wo = (hh - 1) // stride + 1, (ww - 1) // stride + 1
+    call = _conv_call(row, x_cl, w, b)
+    got = call()
     torch.cuda.synchronize()
     want = conv_common.conv_plain(x, w, b, stride, relu)
     check(got.dtype == want.dtype == torch.bfloat16
@@ -666,40 +684,102 @@ def check_conv(row, seed, timing=True):
     err = (got.float() - want.float()).abs().max().item()
     ref = want.float().abs().max().item()
     tol = TOL[torch.bfloat16]
+    nchw_equal = torch.equal(_conv_call(row, x, w, b)(), got)
+    conv_common.reset_counters()
+    again = call()
+    copies, preps = conv_common.layout_copies, conv_common.weight_preps
+    # doubling the parameters in place is exact in bf16 and f32: a stale
+    # prepared weight would show as an output that did not double
+    prep = conv_common.prepared(w, b)
+    w.mul_(2.0)
+    b.mul_(2.0)
+    followed = (conv_common.prepared(w, b) is not prep
+                and torch.equal(call(), got * 2))
+    w.mul_(0.5)
+    b.mul_(0.5)
+    wrapper = {
+        "channels_last_out": got.is_contiguous(
+            memory_format=torch.channels_last),
+        "nchw_input_bit_equal": nchw_equal,
+        "bitwise_repeatable": torch.equal(again, got),
+        "second_call_layout_copies": copies,
+        "second_call_weight_preps": preps,
+        "follows_in_place_update": followed}
+    wrapper_ok = (wrapper["channels_last_out"] and nchw_equal
+                  and wrapper["bitwise_repeatable"] and followed
+                  and preps == 0 and copies == int(C % 8 != 0))
     # gradients: kernel forward + the VJP against autograd of the plain
     # bf16 formulation (the same gradient function: equal)
     gen = torch.Generator(device="cuda").manual_seed(seed + 1)
     g = torch.randn(got.shape, generator=gen, device="cuda").bfloat16()
-    leaves = [t.detach().requires_grad_(True) for t in (x, w, b)]
+    leaves = [t.detach().requires_grad_(True) for t in (x_cl, w, b)]
     _conv_call(row, *leaves)().backward(g)
-    ref_leaves = [t.detach().requires_grad_(True) for t in (x, w, b)]
+    ref_leaves = [t.detach().requires_grad_(True) for t in (x_cl, w, b)]
     conv_common.conv_ref_bf16(*ref_leaves, stride, relu).backward(g)
     grad_err = max(((a.grad.float() - r.grad.float()).abs().max()
                     / r.grad.float().abs().max().clamp(min=1e-30)).item()
                    for a, r in zip(leaves, ref_leaves))
-    N, C, hh, ww = row["shape"]
-    ho, wo = (hh - 1) // stride + 1, (ww - 1) // stride + 1
     flops = 2 * N * ho * wo * row["cout"] * C * row["kh"] * row["kw"]
     nbytes = 2 * (x.numel() + w.numel() + N * row["cout"] * ho * wo) + 4 * (
         row["cout"])
+    plan = conv_common.tile_plan(N * ho * wo, row["cout"],
+                                 row["kh"] * row["kw"] * (-(-C // 8) * 8))
     rec = {**row, "max_abs_err": err, "max_abs_ref": ref, "tol_rel": tol,
            "grad_rel_err": grad_err, "flops": flops, "bytes": nbytes,
-           "ok": err <= tol * ref and grad_err <= tol}
+           "tile_plan": dataclasses.asdict(plan), **wrapper,
+           "ok": err <= tol * ref and grad_err <= tol and wrapper_ok}
     if not timing:
         return rec
     wb, bb = w.bfloat16(), b.bfloat16()
+    wb_cl = wb.contiguous(memory_format=torch.channels_last)
     pad = (row["kh"] // 2, row["kw"] // 2)
-    call = _conv_call(row, x, w, b)
     rec.update(
         ms=time_ms(call),
+        ms_nchw_input=time_ms(_conv_call(row, x, w, b)),
         plain_ms=time_ms(lambda: conv_common.conv_plain(x, w, b, stride,
                                                         relu)),
         bound_ms=max(flops / BF16_FLOPS, nbytes / HBM_BYTES_PER_S) * 1e3,
         bound_by=("operations" if flops / BF16_FLOPS
                   > nbytes / HBM_BYTES_PER_S else "bytes"),
-        library_ms=time_ms(lambda: F.conv2d(x, wb, bb, stride, pad)),
-        library_note="F.conv2d in bf16 (cuDNN), bias in bf16")
+        library_ms=time_ms(lambda: F.conv2d(x_cl, wb_cl, bb, stride, pad)),
+        library_nchw_ms=time_ms(lambda: F.conv2d(x, wb, bb, stride, pad)),
+        library_note="F.conv2d in bf16 (cuDNN), bias in bf16, operands "
+                     "channels-last (library_ms) and NCHW-contiguous "
+                     "(library_nchw_ms); ms: x channels-last, "
+                     "ms_nchw_input: x NCHW-contiguous")
     return rec
+
+
+def conv_sweep(seed: int) -> None:
+    """Every tile variant the conv kernels are built for, forced on every
+    flagship conv shape (x channels-last, L2 flushed before each launch):
+    the time of the variant tile_plan picks beside all the others', the
+    data the plan's rules are fitted to."""
+    for i, row in enumerate(flagship_convs(opt_in_config())):
+        if row["kernel"] is None:
+            continue
+        x, w, b = conv_inputs(row, seed + i)
+        x = x.contiguous(memory_format=torch.channels_last)
+        N, C, hh, ww = row["shape"]
+        s = row["stride"]
+        ho, wo = (hh - 1) // s + 1, (ww - 1) // s + 1
+        picked = conv_common.tile_plan(N * ho * wo, row["cout"],
+                                       row["kh"] * row["kw"] * (-(-C // 8) * 8))
+        times = {}
+        for plan in conv_common.all_plans():
+            if s == 1:
+                call = lambda: kconv.conv2d(x, w, b, row["relu"], plan=plan)
+            else:
+                call = lambda: kstem.stem_conv(x, w, b, plan=plan)
+            times[plan] = time_ms(call, reps=7, warmup=2)
+        best = min(times, key=times.get)
+        emit("conv_sweep", kernel=row["kernel"], shape=row["shape"],
+             cout=row["cout"], kh=row["kh"], kw=row["kw"], stride=s,
+             picked=dataclasses.astuple(picked), picked_ms=times[picked],
+             best=dataclasses.astuple(best), best_ms=times[best],
+             picked_over_best=times[picked] / times[best],
+             ms={"x".join(map(str, dataclasses.astuple(p))): t
+                 for p, t in times.items()})
 
 
 class plain_twins:
@@ -733,6 +813,24 @@ def opt_in_config():
                                pallas_conv=True)
 
 
+def conv_variant_resources(ptxas_log: str):
+    """Per instantiation of the conv kernel, from nvcc's -Xptxas -v log:
+    (stride, pixel tile, channel tile, stages) -> registers and spill
+    bytes. Shared memory is dynamic: TilePlan.smem_bytes."""
+    out = {}
+    pat = re.compile(
+        r"conv_igemm_kernelILi(\d+)ELi(\d+)ELi(\d+)ELi(\d+)E.*?"
+        r"(\d+) bytes spill stores, (\d+) bytes spill loads.*?"
+        r"Used (\d+) registers", re.S)
+    for m in pat.finditer(ptxas_log):
+        s_, bm, bn, stages, st, ld, regs = map(int, m.groups())
+        plan = conv_common.TilePlan(bm, bn, stages, 1)
+        out[f"s{s_} bm{bm} bn{bn} stages{stages}"] = {
+            "registers": regs, "spill_bytes": st + ld,
+            "dynamic_smem_bytes": plan.smem_bytes}
+    return out
+
+
 def conv_summary(name, replaces, recs, counts):
     """A conv kernel's entry of the kernels line: times per flagship
     forward (each shape's time x its launches per forward)."""
@@ -749,6 +847,8 @@ def conv_summary(name, replaces, recs, counts):
             "bound_ms": per_forward("bound_ms"),
             "bound_by": "operations" if ops > mem else "bytes",
             "library_ms": per_forward("library_ms"),
+            "ms_nchw_input": per_forward("ms_nchw_input"),
+            "library_nchw_ms": per_forward("library_nchw_ms"),
             "per": "flagship forward", "shapes": len(recs)}
 
 
@@ -758,6 +858,10 @@ def conv_summary(name, replaces, recs, counts):
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--conv-sweep", action="store_true",
+                    help="after the build, time every tile variant of the "
+                         "conv kernels on every flagship conv shape "
+                         "(phase conv_sweep), and stop")
     ap.add_argument("--profile", metavar="DIR",
                     help="profile one forward and one train step, write "
                          "their traces into DIR")
@@ -785,7 +889,16 @@ def main() -> int:
     report = kbuild.build()
     emit("build", seconds=time.perf_counter() - t0,
          kernels={k: {"seconds": v["seconds"], "ptxas": v["ptxas"][-900:]}
-                  for k, v in report.items()})
+                  for k, v in report.items()},
+         conv_variants={k: conv_variant_resources(report[k]["ptxas"])
+                        for k in (kstem.NAME, kconv.NAME)})
+
+    if args.conv_sweep:
+        conv_sweep(args.seed)
+        print(json.dumps({"ok": True, "device": {
+            "platform": "gpu", "kind": kind,
+            "count": torch.cuda.device_count()}}), flush=True)
+        return 0
 
     # 3. each kernel vs its plain version at the flagship level shapes
     per_level, per_level_bwd = [], []
@@ -862,7 +975,7 @@ def main() -> int:
         emit("profile", path="forward", **profile_run(
             lambda: run_forward(model, voxel, images), ms, args.profile,
             "forward"))
-    del model
+    default_model = model
 
     # 4b. the opt-in flagship forward: q8 lookup, stem and conv kernels
     model = bt.build_model(opt_cfg, device="cuda", seed=args.seed)
@@ -871,11 +984,20 @@ def main() -> int:
     for _ in range(warmup):
         low, up = run_forward(model, voxel, images)
     opt_times = []
+    conv_common.reset_counters()
     for _ in range(timed):
         t0 = time.perf_counter()
         low, up = run_forward(model, voxel, images)
         opt_times.append((time.perf_counter() - t0) * 1e3)
     opt_counts = kernels.launch_counts()
+    # the wrappers' own work in the timed forwards: one layout copy per
+    # conv whose input has a channel count that is not a multiple of 8
+    # (the stems, convf1), none elsewhere (the activations stay
+    # channels-last between the kernels), and no weight prepared twice
+    copies_per_fwd = conv_common.layout_copies / timed
+    preps_timed = conv_common.weight_preps
+    want_copies = sum(r["per_forward"] for r in flagship_convs(opt_cfg)
+                      if r["kernel"] and r["shape"][1] % 8)
     opt_per_fwd = {k: v / n_fwd for k, v in opt_counts.items()}
     opt_ms = statistics.median(opt_times)
     want_opt = expected_launches(opt_cfg)
@@ -886,11 +1008,33 @@ def main() -> int:
          max_memory_allocated=torch.cuda.max_memory_allocated(),
          launches=opt_counts, launches_per_forward=opt_per_fwd,
          launches_per_forward_derived=want_opt,
+         layout_copies_per_forward=copies_per_fwd,
+         layout_copies_per_forward_derived=want_copies,
+         weight_preps_in_timed_forwards=preps_timed,
          finite=bool(torch.isfinite(up.params).all()))
     check(bool(torch.isfinite(up.params).all())
           and bool(torch.isfinite(low.params).all()), "opt-in: non-finite")
     check(opt_per_fwd == want_opt,
           f"opt-in launches per forward {opt_per_fwd}, derived {want_opt}")
+    check(copies_per_fwd == want_copies and preps_timed == 0,
+          f"opt-in forward: {copies_per_fwd} layout copies per forward "
+          f"(derived {want_copies}), {preps_timed} weights prepared again")
+    # the two paths in turns (default, opt-in, opt-in, default): the host
+    # sets both walls and drifts within a process, so the medians of
+    # phases 4 and 4b, taken one after the other, do not compare
+    turns = {"default": [], "opt_in": []}
+    for _ in range(6):
+        for name, m in (("default", default_model), ("opt_in", model),
+                        ("opt_in", model), ("default", default_model)):
+            t0 = time.perf_counter()
+            run_forward(m, voxel, images)
+            turns[name].append((time.perf_counter() - t0) * 1e3)
+    turn_ms = {k: statistics.median(v) for k, v in turns.items()}
+    emit("opt_vs_default", forwards_each=12, in_turns_ms=turn_ms,
+         in_turns_ms_all=turns,
+         opt_in_over_default=turn_ms["opt_in"] / turn_ms["default"],
+         phase_medians_ms={"default": ms, "opt_in": opt_ms})
+    del default_model
     if args.profile:
         emit("profile", path="opt_forward", **profile_run(
             lambda: run_forward(model, voxel, images), opt_ms, args.profile,

@@ -15,15 +15,25 @@ Tolerances:
     XLA on the CPU accumulates it in bf16 (2.2e-2 of its max from the
     exact sum over 128 pixels), torch in f32 with one rounding; so the
     port's is held to the exact sum at 2^-7 and to JAX's at 5e-2.
+
+Around the kernels (no tolerance: exact): the wrappers give the same bits
+for any layout of x and return channels-last memory, the prepared-weight
+cache never serves a stale value, and the tile plan is one the kernels are
+built for.
 """
 
 from __future__ import annotations
+
+import dataclasses
 
 import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+
+import bflow_tpu_torch as bt
+import chip_smoke
 
 from bflow_tpu.ops.pallas import conv3x3 as jconv
 from bflow_tpu.ops.pallas import stem_conv as jstem
@@ -247,3 +257,260 @@ def test_conv_wrappers_reject_bad_inputs(bad):
     for fn in (lambda: kconv.conv2d(x, w, b), lambda: kstem.stem_conv(x, w, b)):
         with pytest.raises((ValueError, TypeError)):
             fn()
+
+
+# ---------------------------------------------------------------------------
+# around the kernels: layouts, the prepared-weight cache, the tile plan
+
+
+def _layouts(xt: torch.Tensor):
+    """The same values NCHW-contiguous, channels-last and as a
+    non-contiguous slice of a larger tensor."""
+    n, c, h, w = xt.shape
+    big = torch.zeros(n, c + 2, h + 1, w + 3, dtype=xt.dtype)
+    big[:, 1:c + 1, 1:, 2:w + 2] = xt
+    return {"nchw": xt.contiguous(),
+            "channels_last": xt.contiguous(memory_format=torch.channels_last),
+            "sliced": big[:, 1:c + 1, 1:, 2:w + 2]}
+
+
+@pytest.mark.parametrize("layout", ["nchw", "channels_last", "sliced"])
+@pytest.mark.parametrize("which", ["conv", "stem"])
+def test_wrappers_take_any_layout_and_return_channels_last(which, layout):
+    x, k, b = _case(6, (2, 12, 12, 8), 40, 3, 3)  # NHWC
+    xt, wt, bt_ = _to_port(x, k, b)
+    xs = _layouts(xt)
+    assert not xs["sliced"].is_contiguous()
+    fn = ((lambda t: kconv.conv2d(t, wt, bt_, True)) if which == "conv"
+          else (lambda t: kstem.stem_conv(t, wt, bt_)))
+    want = fn(xs["nchw"])
+    got = fn(xs[layout])
+    assert torch.equal(got, want)
+    # the memory format the CUDA path documents
+    assert got.is_contiguous(memory_format=torch.channels_last)
+    assert got.shape == ((2, 40, 12, 12) if which == "conv"
+                         else (2, 40, 6, 6))
+    # and under autograd (ConvFn) as well
+    wg = wt.clone().requires_grad_(True)
+    out = (kconv.conv2d(xs[layout], wg, bt_, True) if which == "conv"
+           else kstem.stem_conv(xs[layout], wg, bt_))
+    assert out.requires_grad and torch.equal(out.detach(), want)
+    assert out.is_contiguous(memory_format=torch.channels_last)
+
+
+def test_no_autograd_node_without_a_gradient_to_take():
+    x, k, b = _case(7, (1, 6, 8, 16), 32, 3, 3)
+    xt, wt, bt_ = _to_port(x, k, b)
+    assert kconv.conv2d(xt, wt, bt_).grad_fn is None
+    wt.requires_grad_(True)
+    assert kconv.conv2d(xt, wt, bt_).grad_fn is not None
+    with torch.no_grad():
+        assert kconv.conv2d(xt, wt, bt_).grad_fn is None
+
+
+def test_kernel_input_passes_channels_last_through():
+    x = torch.randn(2, 16, 5, 7).bfloat16()
+    x_cl = x.contiguous(memory_format=torch.channels_last)
+    conv_common.reset_counters()
+    assert conv_common.kernel_input(x_cl, 16) is x_cl
+    assert conv_common.layout_copies == 0
+    for t, cp in ((x, 16), (x_cl[:, :12], 16), (x_cl[:, :, 1:], 16)):
+        got = conv_common.kernel_input(t, cp)
+        assert got.shape == (2, cp, *t.shape[2:])
+        assert got.is_contiguous(memory_format=torch.channels_last)
+        assert torch.equal(got[:, :t.shape[1]], t)
+        assert not got[:, t.shape[1]:].any()
+    assert conv_common.layout_copies == 3
+
+
+def _prepared_matches(prep, w, b):
+    o, c, kh, kw = w.shape
+    assert prep.w.shape == (o, kh, kw, prep.cp) and prep.cp % 8 == 0
+    assert prep.w.dtype == torch.bfloat16 and prep.w.is_contiguous()
+    assert torch.equal(prep.w[..., :c],
+                       w.detach().bfloat16().permute(0, 2, 3, 1))
+    assert not prep.w[..., c:].any()
+    assert prep.b.dtype == torch.float32
+    assert torch.equal(prep.b, b.detach().float())
+
+
+@pytest.mark.parametrize("update", ["add_", "optimizer", "load_state_dict",
+                                    "data", "bias"])
+def test_prepared_weight_cache_is_never_stale(update):
+    conv = torch.nn.Conv2d(12, 40, 3)
+    w, b = conv.weight, conv.bias
+    conv_common.reset_counters()
+    first = conv_common.prepared(w, b)
+    assert conv_common.prepared(w, b) is first
+    assert conv_common.weight_preps == 1
+    _prepared_matches(first, w, b)
+    if update == "add_":
+        with torch.no_grad():
+            w.add_(1.0)
+    elif update == "optimizer":
+        opt = torch.optim.AdamW(conv.parameters(), lr=0.1)
+        conv(torch.randn(1, 12, 5, 5)).sum().backward()
+        opt.step()
+    elif update == "load_state_dict":
+        conv.load_state_dict({"weight": torch.randn_like(w),
+                              "bias": torch.randn_like(b)})
+    elif update == "data":
+        w.data = torch.randn_like(w)
+    else:
+        with torch.no_grad():
+            b.mul_(3.0)
+    second = conv_common.prepared(w, b)
+    assert second is not first and conv_common.weight_preps == 2
+    _prepared_matches(second, w, b)
+    assert conv_common.prepared(w, b) is second
+    # another parameter of the same shape has its own entry
+    other = torch.nn.Conv2d(12, 40, 3)
+    third = conv_common.prepared(other.weight, other.bias)
+    assert third is not second
+    assert conv_common.prepared(w, b) is second
+
+
+def test_cached_values_go_with_their_sources():
+    import gc
+
+    w, b = torch.randn(8, 8, 3, 3), torch.randn(8)
+    conv_common.prepared(w, b)
+    n = len(conv_common._derived)
+    del w, b
+    gc.collect()
+    assert len(conv_common._derived) == n - 1
+
+
+def _opt_cfg():
+    return dataclasses.replace(bt.flagship_config(), pallas_stem=True,
+                               pallas_conv=True)
+
+
+def _plan_rows():
+    rows = [(r, "B=1 480x640") for r in chip_smoke.flagship_convs(_opt_cfg())]
+    rows += [(r, "B=3 288x384") for r in chip_smoke.flagship_convs(
+        _opt_cfg(), chip_smoke.TRAIN_B, chip_smoke.TRAIN_H,
+        chip_smoke.TRAIN_W)]
+    return [(r, at) for r, at in rows if r["kernel"]]
+
+
+def _check_plan(plan, m, o):
+    assert plan.legal(), plan
+    assert (plan.bm, plan.bn) in conv_common.VARIANTS
+    assert plan.stages == conv_common.VARIANTS[(plan.bm, plan.bn)]
+    assert plan.bm in (64, 128) and plan.threads == 2 * plan.bm <= 1024
+    assert plan.bn % 8 == 0 and plan.bn <= 256  # a wgmma width
+    assert plan.stages >= 3  # the ring's prefetch distance is stages - 2
+    assert plan.smem_bytes <= 232_448
+    assert plan.split in (1, 2, 4)  # a portable cluster size
+    gx, gy, gz = plan.grid(m, o)
+    assert gx * plan.bm >= m > (gx - 1) * plan.bm
+    assert gy * plan.bn >= o > (gy - 1) * plan.bn
+    assert gz == plan.split and gx < 2 ** 31 and gy < 65536
+
+
+@pytest.mark.parametrize("i", range(53))
+def test_tile_plan_is_legal_at_every_flagship_shape(i):
+    rows = _plan_rows()
+    # 26 shapes at 480x640, 27 at 288x384 (there the fused 1x5 GRU conv
+    # passes its gate too)
+    assert len(rows) == 53
+    row, _ = rows[i]
+    n, c, h, w = row["shape"]
+    s = row["stride"]
+    m = n * ((h - 1) // s + 1) * ((w - 1) // s + 1)
+    k = row["kh"] * row["kw"] * (-(-c // 8) * 8)
+    plan = conv_common.tile_plan(m, row["cout"], k)
+    _check_plan(plan, m, row["cout"])
+    if plan.split > 1:  # every block of the cluster has K steps to do
+        assert -(-k // conv_common.BK) >= 4 * plan.split
+    if m >= 100_000:  # the encoders' large maps: 128-pixel blocks
+        assert plan.bm == 128 and plan.bn >= row["cout"]
+
+
+@pytest.mark.parametrize("m,o,k", [(1, 32, 8), (63, 124, 392), (65, 33, 72),
+                                   (4800, 124, 2304), (4799, 385, 40),
+                                   (9 * 13, 64, 72), (11 * 7 * 2, 124, 392),
+                                   (10 ** 6 + 1, 1000, 27 * 8),
+                                   (2 ** 31 - 200, 64, 8), (17, 2048, 4096)])
+def test_tile_plan_is_legal_at_ragged_shapes(m, o, k):
+    plan = conv_common.tile_plan(m, o, k)
+    _check_plan(plan, m, o)
+    assert plan is conv_common.tile_plan(m, o, k)  # cached per shape
+
+
+def test_every_built_variant_is_a_legal_plan():
+    plans = conv_common.all_plans()
+    assert len(plans) == 18 and len(set(plans)) == 18
+    for plan in plans:
+        _check_plan(plan, 4800, 128)
+    assert not conv_common.TilePlan(128, 256, 4, 1).legal()
+    assert not conv_common.TilePlan(64, 64, 6, 3).legal()
+    assert not conv_common.TilePlan(64, 64, 4, 1).legal()
+
+
+def test_forced_plan_is_checked_before_any_launch():
+    """A variant the kernels are not built for raises before the
+    library is looked up (so also on a machine without nvcc)."""
+    with pytest.raises(ValueError, match="not built"):
+        conv_common._launch_args("conv3x3", (1, 8, 4, 4), 8, 3, 3, 8, 1,
+                                 False, conv_common.TilePlan(192, 64, 4, 1))
+
+
+@pytest.mark.parametrize("update", ["none", "add_", "load_state_dict"])
+def test_gru_fused_weights_follow_the_parameters(update):
+    """The fused GRU weights are made once per parameter value where no
+    gradient can be asked for, and anew after an update: the fused pass
+    gives what a fresh module with the same parameters gives."""
+    from bflow_tpu_torch.models.update import SepConvGRU
+
+    torch.manual_seed(0)
+    gru = SepConvGRU(16, 24, torch.bfloat16, use_kernel=True)
+    h = torch.randn(1, 16, 12, 16).bfloat16()
+    x = torch.randn(1, 24, 12, 16).bfloat16()
+    with torch.no_grad():
+        first = gru(h, x)
+        params = gru._fused_params("1")
+        assert all(a is b for a, b in zip(params, gru._fused_params("1")))
+        if update == "add_":
+            gru.convq1.weight.add_(0.25)
+            gru.convz2.bias.add_(0.5)
+        elif update == "load_state_dict":
+            gru.load_state_dict({k: v + 0.125
+                                 for k, v in gru.state_dict().items()})
+        again = gru._fused_params("1")
+        assert (again[0] is params[0]) == (update == "none")
+        got = gru(h, x)
+    fresh = SepConvGRU(16, 24, torch.bfloat16, use_kernel=True)
+    fresh.load_state_dict(gru.state_dict())
+    with torch.no_grad():
+        want = fresh(h, x)
+    assert torch.equal(got, want)
+    assert torch.equal(got, first) == (update == "none")
+    # under autograd the fused weights are built in the graph
+    out = gru(h, x)
+    out.float().sum().backward()
+    assert gru.convq1.weight.grad is not None
+    assert gru.convz1.weight.grad.abs().sum() > 0
+
+
+@pytest.mark.parametrize("kind", ["instance", "batch", "group", "none"])
+@pytest.mark.parametrize("training", [False, True])
+def test_norms_keep_a_channels_last_activation(kind, training):
+    """What stands between two convs keeps the kernels' channels-last
+    layout (so the next conv reads it in place) and computes the same
+    values as on an NCHW-contiguous tensor."""
+    from bflow_tpu_torch.models.extractor import make_norm
+
+    torch.manual_seed(1)
+    norm = make_norm(kind, 16, 2).train(training)
+    x = torch.randn(2, 16, 6, 10).bfloat16()
+    x_cl = x.contiguous(memory_format=torch.channels_last)
+    want = torch.relu(norm(x))
+    got = torch.relu(norm(x_cl))
+    assert got.is_contiguous(memory_format=torch.channels_last)
+    assert not got.is_contiguous()
+    # the same arithmetic; reductions may run in another order
+    got, want = got.detach().float(), want.detach().float()
+    np.testing.assert_allclose(got.numpy(), want.numpy(), rtol=0,
+                               atol=ULP * want.abs().max().item())

@@ -1,7 +1,9 @@
 """Guards of the port: it imports no JAX and nothing of bflow_tpu, its
 entry points refuse to fall back to the CPU, its weights bridge round-trips
 through the JAX package's importer, and (on a GPU only) its CUDA kernels
-match their plain versions at the flagship shapes.
+match their plain versions at the flagship shapes, the conv kernels in
+every tile variant, and an encoder under the conv kernels stays
+channels-last between convs.
 
 JAX is imported inside the tests that use it, so that the GPU tests run on
 a machine without JAX:
@@ -259,9 +261,10 @@ def test_q8_lookup_kernel_matches_plain_on_gpu(cuda_device, level):
 @pytest.mark.cuda
 @pytest.mark.parametrize("kernel", ["conv3x3", "stem_conv"])
 def test_conv_kernels_match_plain_on_gpu(cuda_device, kernel):
-    """Each conv kernel against its twin, and its gradients against the
-    plain formulation's, at every flagship shape the gates send to it
-    (chip_smoke phase 3c)."""
+    """Each conv kernel against its twin on channels-last and
+    NCHW-contiguous inputs, the wrapper's layout copies and prepared
+    weights, and its gradients against the plain formulation's, at every
+    flagship shape the gates send to it (chip_smoke phase 3c)."""
     import dataclasses
 
     import chip_smoke
@@ -276,8 +279,100 @@ def test_conv_kernels_match_plain_on_gpu(cuda_device, kernel):
     for i, row in enumerate(rows):
         before = kernels.launch_counts()[kernel]
         rec = chip_smoke.check_conv(row, seed=i, timing=False)
-        assert kernels.launch_counts()[kernel] == before + 2  # fwd, grads
+        # channels-last x, NCHW x, the repeat, the doubled weight, grads
+        assert kernels.launch_counts()[kernel] == before + 5
         assert rec["ok"], rec
+
+
+# ragged in M (pixels past the last tile), O (channels past the last
+# channel tile, odd O: 2-byte stores) and K (the last K step part empty, C
+# padded from 4 and 12 to 8 and 16)
+RAGGED_CONVS = [((1, 8, 9, 13), 64, 3, 3), ((2, 4, 11, 7), 124, 7, 7),
+                ((1, 64, 17, 19), 96, 3, 3), ((1, 136, 10, 12), 200, 1, 5),
+                ((3, 12, 7, 5), 33, 5, 1)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("stride", [1, 2])
+@pytest.mark.parametrize("shape,o,kh,kw", RAGGED_CONVS)
+def test_conv_kernels_every_tile_plan_on_gpu(cuda_device, shape, o, kh, kw,
+                                             stride):
+    """Every tile variant the kernels are built for, forced on ragged
+    shapes, on channels-last, NCHW-contiguous and sliced inputs: the same
+    bits from each layout, within one bf16 ulp of the twin, channels-last
+    out."""
+    from bflow_tpu_torch.kernels import conv3x3, conv_common, stem_conv
+
+    gen = torch.Generator(device="cuda").manual_seed(sum(shape) + o)
+    n, c, h, w = shape
+    big = torch.randn(n, c + 3, h, w + 2, generator=gen,
+                      device="cuda").bfloat16()
+    sliced = big[:, 1:c + 1, :, 2:]
+    x = sliced.contiguous()
+    x_cl = x.contiguous(memory_format=torch.channels_last)
+    wt = torch.randn(o, c, kh, kw, generator=gen,
+                     device="cuda") / (c * kh * kw) ** 0.5
+    b = 0.1 * torch.randn(o, generator=gen, device="cuda")
+    want = conv_common.conv_plain(x, wt, b, stride, True).float()
+    plans = conv_common.all_plans()
+    assert len(plans) == 18 and all(p.legal() for p in plans)
+    for plan in plans:
+        if stride == 1:
+            outs = [conv3x3.conv2d(t, wt, b, True, plan=plan)
+                    for t in (x_cl, x, sliced)]
+        else:
+            outs = [torch.relu(stem_conv.stem_conv(t, wt, b, plan=plan))
+                    for t in (x_cl, x, sliced)]
+        torch.cuda.synchronize()
+        assert all(t.is_contiguous(memory_format=torch.channels_last)
+                   for t in outs), plan
+        assert torch.equal(outs[0], outs[1]), plan
+        assert torch.equal(outs[0], outs[2]), plan
+        err = (outs[0].float() - want).abs().max() / want.abs().max()
+        assert err <= 1e-2, (plan, err.item())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("norm", ["instance", "batch", "group", "none"])
+def test_encoder_keeps_channels_last_between_convs_on_gpu(cuda_device, norm):
+    """Under pallas_stem and pallas_conv an encoder forward hands every
+    conv after the stem a channels-last activation: the kernels' wrappers
+    copy a layout once (the stem's 15-channel NCHW input), and the output
+    agrees with the same forward through the plain twins."""
+    import chip_smoke
+
+    from bflow_tpu_torch import kernels
+    from bflow_tpu_torch.kernels import conv_common
+    from bflow_tpu_torch.models.extractor import (
+        BasicEncoder, Conv2d, init_weights)
+
+    enc = BasicEncoder(15, 128, norm, torch.bfloat16, stem_kernel=True,
+                       conv_kernel=True)
+    init_weights(enc, torch.Generator().manual_seed(0))
+    enc = enc.to(cuda_device).eval()
+    seen = {}
+    for name, mod in enc.named_modules():
+        if isinstance(mod, Conv2d):
+            mod.register_forward_pre_hook(
+                lambda m, args, name=name: seen.__setitem__(
+                    name, args[0].is_contiguous(
+                        memory_format=torch.channels_last)))
+    x = torch.randn(2, 15, 96, 128, device=cuda_device).bfloat16()
+    kernels.reset_launch_counts()
+    conv_common.reset_counters()
+    with torch.no_grad():
+        out = enc(x)
+        with chip_smoke.plain_twins():
+            want = enc(x)
+    torch.cuda.synchronize()
+    counts = kernels.launch_counts()
+    assert counts["stem_conv"] == 3 and counts["conv3x3"] == 10, counts
+    assert conv_common.layout_copies == 1
+    not_cl = sorted(k for k, v in seen.items() if not v and k != "conv1")
+    assert not not_cl, not_cl
+    assert out.is_contiguous(memory_format=torch.channels_last)
+    err = (out.float() - want.float()).abs().max() / want.float().abs().max()
+    assert err < 5e-2, err.item()
 
 
 @pytest.mark.cuda
