@@ -1,66 +1,70 @@
-// Windowed bilinear correlation lookup, backward (VJP), for Hopper (sm_90a).
+// Windowed bilinear correlation lookup, backward (VJP), every pyramid level
+// of a level table in one launch, accumulating dVol, for Hopper (sm_90a).
 //
 // Replaces the TPU kernel bflow_tpu/ops/pallas/corr_lookup_v3.py:_bwd_kernel
-// (reached through _bwd_impl and the custom VJP _lookup_cvjp). The forward
-// (csrc/corr_lookup_fwd.cu) reads, for query q, the (2r+1)^2 bilinear taps
-// of its own (hl, wl) map vol[q] at (x + dx, y + dy). Given the cotangent
-// g (Q, (2r+1)^2) of those taps, this kernel returns
+// (reached through _bwd_impl and the custom VJP _lookup_cvjp), together
+// with the backward of the index and divide around it. The forward
+// (csrc/corr_lookup_fwd.cu) reads, for query position m, target t and
+// level l, the (2r+1)^2 bilinear taps of the map vol_l[k, m] at
+// (x + dx, y + dy), (x, y) = base coords[t, m] * 2^-l. Given the
+// cotangent g (M rows of C channels at row stride ld, the layout of the
+// forward's output), this kernel
 //
-//   dvol[q]     each tap's cotangent spread over its four bilinear corners
-//               (corners outside the map drop out), in vol's type;
-//   dcoords[q]  sum over taps of g * d(tap)/d(x, y), f32, with
-//               d/dx = (v01 - v00)(1 - fy) + (v11 - v10) fy and likewise
-//               for y; corners and fractions come from floor, so at an
-//               integer coordinate this is the right derivative (the TPU
-//               kernel's _dhat).
+//   adds to dvol_l[k, m]  each tap's cotangent spread over its four
+//                         bilinear corners (corners outside the map drop
+//                         out), per map cell rounded once to the volume's
+//                         type and added to the level's f32 accumulator,
+//                         which the caller zeroed once for the whole
+//                         backward pass: every refinement iteration adds
+//                         into the same buffer, iterations in the order
+//                         the backward pass runs them;
+//   writes dcoords[t, m]  sum over the target's levels, in level order, of
+//                         2^-l * sum over taps of g * d(tap)/d(x, y), f32,
+//                         d/dx = (v01 - v00)(1 - fy) + (v11 - v10) fy and
+//                         likewise for y; corners and fractions come from
+//                         floor, so at an integer coordinate this is the
+//                         right derivative (the TPU kernel's _dhat).
 //
-// What bounds it on this card: like the forward it is a gather, a few
-// flops per byte. Per query it reads 81 cotangents, 8 bytes of coords and
-// the in-map part of its (2r+2)^2 patch, and writes that patch of dvol and
-// 8 bytes of dcoords: bytes ~ Q * (81 + 2 * (2r+2)^2) * itemsize. The
-// wrapper zeroes the whole dvol first (torch.zeros), which moves far more
-// bytes than the kernel itself at the large pyramid levels; accumulating
-// every refinement iteration into one buffer is a later redesign.
+// Queries own disjoint maps, so no two warps touch one accumulator cell in
+// a launch, and launches are ordered by the stream: plain loads and
+// stores, no atomics, bitwise repeatable.
 //
-// Design (the simple first version; none of the TPU kernel's hat-matrix
-// products, lane bands or diagonal packing carries over): one block of 128
-// threads per query.
-//   1. The query's cotangents are staged in shared memory as f32, and the
-//      per-column and per-row corner positions floor(x + dx), floor(y + dy)
-//      and fractions are computed once (each exactly as the forward computes
-//      them per tap: an f32 add, then floor).
-//   2. Each of the (2r+2)^2 patch cells around floor(x) - r *gathers* the
-//      contributions of the at most 3 x 3 taps whose corners can touch it,
-//      summing in f32 in a fixed order, and writes its cell of dvol once,
-//      rounded once. No atomics: the result is bitwise repeatable, and since
-//      queries own disjoint maps no block touches another block's map.
-//      floor(x + dx) is floor(x) + dx or, when the f32 add rounds up onto an
-//      integer, one more; in that case the fraction is exactly 0, so the one
-//      corner that can then fall outside the patch carries weight 0.
-//   3. Each tap computes its (gx, gy) from the corners the forward read
-//      (loaded through L1), and the block reduces them in f32 with warp
-//      shuffles and a fixed-order sum over warps.
-// Validity is decided in float before any float -> int conversion, as in
-// the forward, so coordinates at +-1e4 neither fault nor contribute.
+// What bounds it on this card: a gather, a few flops per byte. Per
+// (query, level, target) it reads 81 cotangents, 8 bytes of coords, the
+// in-map part of its (2r+2)^2 patch from vol, and reads and writes that
+// patch of the f32 accumulator; per (query, target) it writes 8 bytes of
+// dcoords: bytes ~ sum over levels of Q * (81 itemsize + (2r+2)^2
+// (itemsize + 8) + 16).
+//
+// Design: one block per query position m, one warp per slot (level,
+// target) of the table, so every item of the query runs at once; the
+// loads of a level are issued together (fixed, unrolled counts per radius)
+// and the warp makes one round trip to device memory before it computes.
+// Per slot the warp
+//   1. stages the query's (2r+3)^2 volume patch (for dcoords; see
+//      corr_lookup_table.cuh), its 81 cotangents (one contiguous run) and
+//      the accumulator cells of its (2r+2)^2 patch, and computes per tap
+//      column and row the corner position floor(x + dx) and fraction,
+//      exactly as the forward computes them, and from them the weight of
+//      each of the 3 tap columns (rows) that can touch a patch column
+//      (row): 1 - f, f or 0;
+//   2. per in-map cell of that patch (origin floor(x) - r), sums the 3 x 3
+//      taps' g * wy * wx in f32, rows then columns ascending (the plain
+//      VJP's order; a tap that does not touch the cell adds a zero), and
+//      stores the staged accumulator value plus the sum, rounded to the
+//      volume's type. floor(x + dx) is floor(x) + dx or, where the f32 add
+//      rounds up onto an integer, one more; then the fraction is exactly
+//      0, so the corner that falls outside the patch carries weight 0;
+//   3. each lane sums its taps' (gx, gy) from the staged patch, and a warp
+//      shuffle tree reduces them in a fixed order; after one barrier, one
+//      thread per base target adds its slots' sums, times 2^-l, in slot
+//      (= level) order and writes dcoords.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "corr_lookup_table.cuh"
 
 namespace {
 
-constexpr int kThreads = 128;
-constexpr int kWarps = kThreads / 32;
-constexpr int kMaxWin = 15;  // 2r+2 <= 16, the wrapper's limit
-
-__device__ __forceinline__ float load_f32(const float* p) { return __ldg(p); }
-__device__ __forceinline__ float load_f32(const __nv_bfloat16* p) {
-  return __bfloat162float(*p);
-}
-__device__ __forceinline__ void store_from_f32(float* p, float v) { *p = v; }
-__device__ __forceinline__ void store_from_f32(__nv_bfloat16* p, float v) {
-  *p = __float2bfloat16(v);  // round to nearest even, as torch's .to()
-}
+using namespace corr_table;
 
 __device__ __forceinline__ float warp_sum(float v) {
   for (int off = 16; off > 0; off >>= 1)
@@ -68,155 +72,210 @@ __device__ __forceinline__ float warp_sum(float v) {
   return v;
 }
 
-template <typename T>
-__global__ void __launch_bounds__(kThreads)
-corr_lookup_bwd_kernel(const T* __restrict__ vol,
+template <int R>
+struct WarpScratch {
+  static constexpr int kWin = 2 * R + 1, kPatch = kWin + 1;
+  float patch[Patch<R>::kCells];
+  float g[kWin * kWin];
+  Axes<R> axes;
+  // weight of tap row a - 2 + q onto patch row a (0: it does not touch
+  // it), and likewise for columns
+  float wy[kPatch][3], wx[kPatch][3];
+};
+
+// the weight of tap column i of a query at x (patch origin x0) onto patch
+// column a: the plain version's 1 - f or f, or 0 where neither of its
+// corners is there; rows alike
+template <int R>
+__device__ __forceinline__ float tap_weight(float x, float x0, int i, int a) {
+  if (i < 0 || i > 2 * R) return 0.f;
+  const Axis ax = axis(x, i - R);
+  const float rel = ax.c - x0;  // exact when live
+  if (rel == (float)a) return __fsub_rn(1.f, ax.f);
+  if (__fadd_rn(rel, 1.f) == (float)a) return ax.f;
+  return 0.f;
+}
+
+template <int R>
+constexpr size_t smem_bytes(int slots) {
+  return (size_t)slots * (sizeof(WarpScratch<R>) + 2 * sizeof(float));
+}
+
+template <typename T, int R>
+__global__ void __launch_bounds__(kMaxSlots * 32)
+corr_lookup_bwd_kernel(const __grid_constant__ LookupTable tab,
                        const float* __restrict__ coords,
-                       const T* __restrict__ g, T* __restrict__ dvol,
-                       float* __restrict__ dcoords, int hl, int wl,
-                       int radius) {
-  __shared__ float g_s[kMaxWin * kMaxWin];
-  __shared__ float col_s[kMaxWin], fx_s[kMaxWin];  // floor(x+dx), fraction
-  __shared__ float row_s[kMaxWin], fy_s[kMaxWin];  // floor(y+dy), fraction
-  __shared__ float red_s[2][kWarps];
+                       const T* __restrict__ g,
+                       float* __restrict__ dcoords) {
+  constexpr int kWin = 2 * R + 1, kTaps = kWin * kWin;
+  constexpr int kPatch = kWin + 1, kCells = kPatch * kPatch;
+  constexpr int kCellRounds = (kCells + 31) / 32;
+  constexpr int kTapRounds = (kTaps + 31) / 32;
+  extern __shared__ float smem[];
+  const int S = tab.n_slots;
+  WarpScratch<R>* scratch = reinterpret_cast<WarpScratch<R>*>(smem);
+  float* dc_s = reinterpret_cast<float*>(scratch + S);  // (S, 2)
 
-  const int win = 2 * radius + 1;
-  const int taps = win * win;
-  const int patch = win + 1;
-  const int64_t q = blockIdx.x;
-  const int tid = threadIdx.x;
-  const float x = __ldg(coords + 2 * q);
-  const float y = __ldg(coords + 2 * q + 1);
+  const int s = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const long long M = tab.queries;
+  const long long m = blockIdx.x;
+  const LevelDesc& L = tab.level[tab.slot_level[s]];
+  const int t = tab.slot_target[s];
+  WarpScratch<R>& w = scratch[s];
+  const long long map_off = ((long long)tab.slot_k[s] * M + m) * L.hl * L.wl;
+  const T* map = static_cast<const T*>(L.vol) + map_off;
+  const float* c = coords + 2 * ((long long)t * M + m);
+  const Patch<R> p = make_patch<R>(__fmul_rn(__ldg(c), L.scale),
+                                   __fmul_rn(__ldg(c + 1), L.scale), L.hl,
+                                   L.wl);
+  const bool need_dc = dcoords != nullptr;
+  float* dm = L.dvol == nullptr ? nullptr : L.dvol + map_off;
 
-  for (int t = tid; t < taps; t += kThreads)
-    g_s[t] = load_f32(g + q * taps + t);
-  if (tid < win) {
-    const float p = x + (float)(tid - radius);
-    const float c = floorf(p);
-    col_s[tid] = c;
-    fx_s[tid] = p - c;
-  } else if (tid < 2 * win) {
-    const int k = tid - win;
-    const float p = y + (float)(k - radius);
-    const float c = floorf(p);
-    row_s[k] = c;
-    fy_s[k] = p - c;
-  }
-  __syncthreads();
-
-  const float wmax = (float)(wl - 1), hmax = (float)(hl - 1);
-  const T* m = vol + q * (int64_t)hl * wl;
-
-  // dvol: every in-map patch cell gathers from the taps touching it
-  if (dvol != nullptr) {
-    const float x0 = floorf(x) - (float)radius;  // patch origin, exact
-    const float y0 = floorf(y) - (float)radius;
-    T* dm = dvol + q * (int64_t)hl * wl;
-    for (int c = tid; c < patch * patch; c += kThreads) {
-      const int a = c / patch, b = c % patch;
-      const float cy = y0 + (float)a, cx = x0 + (float)b;
-      if (!(cy >= 0.f && cy <= hmax && cx >= 0.f && cx <= wmax)) continue;
-      float acc = 0.f;
-      for (int i = max(a - 2, 0); i <= min(a, win - 1); ++i) {
-        float wy;
-        if (row_s[i] == cy) wy = 1.f - fy_s[i];
-        else if (row_s[i] + 1.f == cy) wy = fy_s[i];
-        else continue;
-        for (int j = max(b - 2, 0); j <= min(b, win - 1); ++j) {
-          float wx;
-          if (col_s[j] == cx) wx = 1.f - fx_s[j];
-          else if (col_s[j] + 1.f == cx) wx = fx_s[j];
-          else continue;
-          acc += (g_s[i * win + j] * wy) * wx;
-        }
-      }
-      // in the map, so cy and cx are exact small integers
-      store_from_f32(dm + (int64_t)cy * wl + (int)cx, acc);
+  // 1. every load of this slot in flight at once
+  if (need_dc) stage_patch<R>(p, map, L.hl, L.wl, w.patch, lane);
+  const T* gq = g + m * tab.ld + (long long)s * kTaps;
+  float gv[kTapRounds];
+#pragma unroll
+  for (int k = 0; k < kTapRounds; ++k)
+    gv[k] = lane + 32 * k < kTaps ? load_f32(gq + lane + 32 * k) : 0.f;
+  float av[kCellRounds];
+  int aidx[kCellRounds];  // the cell's offset in the map, -1: not in it
+#pragma unroll
+  for (int k = 0; k < kCellRounds; ++k) {
+    const int cc = lane + 32 * k;
+    const int a = cc / kPatch, b = cc - a * kPatch;
+    const int row = p.iy0 + a, col = p.ix0 + b;
+    aidx[k] = -1;
+    av[k] = 0.f;
+    if (dm != nullptr && p.live && cc < kCells && row >= 0 && row < L.hl &&
+        col >= 0 && col < L.wl) {
+      aidx[k] = row * L.wl + col;
+      av[k] = dm[aidx[k]];
     }
   }
+  make_axes<R>(p, w.axes, lane);
+#pragma unroll
+  for (int k = 0; k < (6 * kPatch + 31) / 32; ++k) {
+    const int e = lane + 32 * k;  // (axis, patch index, q)
+    if (e >= 6 * kPatch) break;
+    const int ax = e / (3 * kPatch), a = (e / 3) % kPatch, q = e % 3;
+    if (ax == 0) w.wy[a][q] = tap_weight<R>(p.y, p.y0, a - 2 + q, a);
+    else w.wx[a][q] = tap_weight<R>(p.x, p.x0, a - 2 + q, a);
+  }
+#pragma unroll
+  for (int k = 0; k < kTapRounds; ++k)
+    if (lane + 32 * k < kTaps) w.g[lane + 32 * k] = gv[k];
+  __syncwarp();
 
-  if (dcoords == nullptr) return;
-  // dcoords: per-tap derivative from the corners the forward read
+  // 2. dvol: every in-map patch cell gathers from the 3 x 3 taps whose
+  // corners can touch it, tap rows then columns ascending (the weight of
+  // one that does not touch it is 0)
+#pragma unroll
+  for (int k = 0; k < kCellRounds; ++k) {
+    if (aidx[k] < 0) continue;
+    const int cc = lane + 32 * k;
+    const int a = cc / kPatch, b = cc - a * kPatch;
+    float acc = 0.f;
+#pragma unroll
+    for (int q = 0; q < 3; ++q) {
+      const float wy = w.wy[a][q];
+      const float* gr = w.g + min(max(a - 2 + q, 0), kWin - 1) * kWin;
+#pragma unroll
+      for (int u = 0; u < 3; ++u) {
+        const float gt = gr[min(max(b - 2 + u, 0), kWin - 1)];
+        acc = __fadd_rn(acc, __fmul_rn(__fmul_rn(gt, wy), w.wx[b][u]));
+      }
+    }
+    dm[aidx[k]] = __fadd_rn(av[k], round_to(acc, map));
+  }
+
+  // 3. dcoords: per-tap derivative from the staged patch
+  if (!need_dc) return;
   float gx = 0.f, gy = 0.f;
-  for (int t = tid; t < taps; t += kThreads) {
-    const int i = t / win, j = t % win;
-    const float cx = col_s[j], cy = row_s[i];
-    const float fx = fx_s[j], fy = fy_s[i];
-    const bool vx0 = cx >= 0.f && cx <= wmax;
-    const bool vx1 = cx >= -1.f && cx <= wmax - 1.f;
-    const bool vy0 = cy >= 0.f && cy <= hmax;
-    const bool vy1 = cy >= -1.f && cy <= hmax - 1.f;
-    float v00 = 0.f, v01 = 0.f, v10 = 0.f, v11 = 0.f;
-    if ((vx0 || vx1) && (vy0 || vy1)) {
-      const int ix = (int)cx, iy = (int)cy;  // both in [-1, w-1]: exact
-      if (vy0) {
-        const T* r0 = m + (int64_t)iy * wl;
-        if (vx0) v00 = load_f32(r0 + ix);
-        if (vx1) v01 = load_f32(r0 + ix + 1);
-      }
-      if (vy1) {
-        const T* r1 = m + (int64_t)(iy + 1) * wl;
-        if (vx0) v10 = load_f32(r1 + ix);
-        if (vx1) v11 = load_f32(r1 + ix + 1);
-      }
-    }
-    const float gt = g_s[t];
+#pragma unroll
+  for (int k = 0; k < kTapRounds; ++k) {
+    const int tp = lane + 32 * k;
+    if (tp >= kTaps) break;
+    const int i = tp / kWin, j = tp - i * kWin;
+    float v00, v01, v10, v11;
+    corners<R>(p, w.patch, w.axes, i, j, v00, v01, v10, v11);
+    const float gt = w.g[tp], fx = w.axes.fx[j], fy = w.axes.fy[i];
     gx += gt * ((v01 - v00) * (1.f - fy) + (v11 - v10) * fy);
     gy += gt * ((v10 - v00) * (1.f - fx) + (v11 - v01) * fx);
   }
   gx = warp_sum(gx);
   gy = warp_sum(gy);
-  const int warp = tid / 32, lane = tid % 32;
   if (lane == 0) {
-    red_s[0][warp] = gx;
-    red_s[1][warp] = gy;
+    dc_s[2 * s] = __fmul_rn(gx, L.scale);
+    dc_s[2 * s + 1] = __fmul_rn(gy, L.scale);
   }
   __syncthreads();
-  if (tid == 0) {
+  const int nt = tab.n_targets;
+  for (int tt = threadIdx.x; tt < nt; tt += blockDim.x) {
     float sx = 0.f, sy = 0.f;
-    for (int w = 0; w < kWarps; ++w) {  // fixed order: repeatable bits
-      sx += red_s[0][w];
-      sy += red_s[1][w];
+    for (int ss = 0; ss < S; ++ss) {  // level order: repeatable bits
+      if (tab.slot_target[ss] != tt) continue;
+      sx = __fadd_rn(sx, dc_s[2 * ss]);
+      sy = __fadd_rn(sy, dc_s[2 * ss + 1]);
     }
-    dcoords[2 * q] = sx;
-    dcoords[2 * q + 1] = sy;
+    dcoords[2 * ((long long)tt * M + m)] = sx;
+    dcoords[2 * ((long long)tt * M + m) + 1] = sy;
   }
 }
 
-template <typename T>
-int launch(const void* vol, const void* coords, const void* g, void* dvol,
-           void* dcoords, int64_t n_query, int hl, int wl, int radius,
-           void* stream) {
-  if (n_query == 0) return (int)cudaSuccess;
-  if (2 * radius + 1 > kMaxWin || radius < 1)
-    return (int)cudaErrorInvalidValue;
-  corr_lookup_bwd_kernel<T><<<(unsigned)n_query, kThreads, 0,
-                              (cudaStream_t)stream>>>(
-      (const T*)vol, (const float*)coords, (const T*)g, (T*)dvol,
-      (float*)dcoords, hl, wl, radius);
+template <typename T, int R>
+int launch_r(const LookupTable* tab, const void* coords, const void* g,
+             void* dcoords, void* stream) {
+  if (tab->queries == 0) return (int)cudaSuccess;
+  const size_t smem = smem_bytes<R>(tab->n_slots);
+  if (smem > 48 * 1024) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        corr_lookup_bwd_kernel<T, R>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return (int)err;
+  }
+  corr_lookup_bwd_kernel<T, R><<<(unsigned)tab->queries,
+                                 32 * tab->n_slots, smem,
+                                 (cudaStream_t)stream>>>(
+      *tab, (const float*)coords, (const T*)g, (float*)dcoords);
   return (int)cudaGetLastError();
+}
+
+template <typename T>
+int launch(const LookupTable* tab, const void* coords, const void* g,
+           void* dcoords, void* stream) {
+  if (tab->n_slots < 1 || tab->n_slots > kMaxSlots ||
+      tab->queries > 0x7fffffffLL)
+    return (int)cudaErrorInvalidValue;
+  switch (tab->radius) {  // one instantiation per radius: unrolled loops
+    case 1: return launch_r<T, 1>(tab, coords, g, dcoords, stream);
+    case 2: return launch_r<T, 2>(tab, coords, g, dcoords, stream);
+    case 3: return launch_r<T, 3>(tab, coords, g, dcoords, stream);
+    case 4: return launch_r<T, 4>(tab, coords, g, dcoords, stream);
+    case 5: return launch_r<T, 5>(tab, coords, g, dcoords, stream);
+    case 6: return launch_r<T, 6>(tab, coords, g, dcoords, stream);
+    case 7: return launch_r<T, 7>(tab, coords, g, dcoords, stream);
+    default: return (int)cudaErrorInvalidValue;
+  }
 }
 
 }  // namespace
 
 extern "C" {
 
-// vol (Q, hl, wl) contiguous, coords (Q, 2) f32 contiguous (x, y), g
-// (Q, (2r+1)^2) contiguous in vol's type. dvol (Q, hl, wl) in vol's type,
-// zeroed by the caller (only each query's in-map patch is written), or
-// NULL; dcoords (Q, 2) f32, or NULL. Returns cudaGetLastError().
-int corr_lookup_bwd_f32(const void* vol, const void* coords, const void* g,
-                        void* dvol, void* dcoords, long long n_query, int hl,
-                        int wl, int radius, void* stream) {
-  return launch<float>(vol, coords, g, dvol, dcoords, n_query, hl, wl,
-                       radius, stream);
+// tab: the level table, each level's dvol an f32 accumulator of its
+// volume's shape (added into) or NULL; coords (T, M, 2) f32 contiguous; g
+// (M, ld) in the volumes' type, slot s's window at channels (2r+1)^2 s ..;
+// dcoords (T, M, 2) f32, every element written, or NULL. Returns
+// cudaGetLastError().
+int corr_lookup_bwd_f32(const LookupTable* tab, const void* coords,
+                        const void* g, void* dcoords, void* stream) {
+  return launch<float>(tab, coords, g, dcoords, stream);
 }
 
-int corr_lookup_bwd_bf16(const void* vol, const void* coords, const void* g,
-                         void* dvol, void* dcoords, long long n_query,
-                         int hl, int wl, int radius, void* stream) {
-  return launch<__nv_bfloat16>(vol, coords, g, dvol, dcoords, n_query, hl,
-                               wl, radius, stream);
+int corr_lookup_bwd_bf16(const LookupTable* tab, const void* coords,
+                         const void* g, void* dcoords, void* stream) {
+  return launch<__nv_bfloat16>(tab, coords, g, dcoords, stream);
 }
 
 }  // extern "C"

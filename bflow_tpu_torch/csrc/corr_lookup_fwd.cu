@@ -1,87 +1,135 @@
-// Windowed bilinear correlation lookup, forward, for Hopper (sm_90a).
+// Windowed bilinear correlation lookup, forward, every pyramid level of a
+// level table in one launch, for Hopper (sm_90a).
 //
 // Replaces the TPU kernel bflow_tpu/ops/pallas/corr_lookup_v3.py:_fwd_kernel
-// (reached through _fwd_impl and lookup_level_slab). Every query q owns a
-// private (hl, wl) correlation map vol[q] and reads the (2r+1)^2 bilinear
-// taps of that map at (x + dx, y + dy), dx, dy in [-r, r], dy-major, with
-// grid_sample(align_corners=True) zero padding: a corner outside the map
-// contributes zero.
+// (reached through _fwd_impl and lookup_level_slab), together with the
+// index, divide and concatenation that the JAX package's corr_lookup runs
+// around it per level. Every query q owns a private (hl, wl) correlation
+// map per (level, target) and reads the (2r+1)^2 bilinear taps of that map
+// at (x + dx, y + dy), dx, dy in [-r, r], dy-major, where (x, y) is the
+// query's base coordinate of its target times 2^-l, with
+// grid_sample(align_corners=True) zero padding. Output row m (one per
+// query position) holds every slot's window in (level, target) order.
 //
-// What bounds it on this card: it is a gather. Per query it needs at most
-// the (2r+2)^2 patch around floor(x, y) (fewer bytes where the patch leaves
-// the map), 8 bytes of coordinates, and it writes (2r+1)^2 outputs:
-// bytes ~ Q * ((2r+2)^2 + (2r+1)^2) * itemsize, against a few flops per
-// tap. So it is bound by memory traffic, and by the latency of dependent
-// loads at the small pyramid levels, where Q * taps fills only a few
-// waves of threads.
+// What bounds it on this card: it is a gather. Per (query, level, target)
+// it needs at most the (2r+2)^2 patch around floor(x, y) (fewer bytes where
+// the patch leaves the map), 8 bytes of coordinates, and it writes
+// (2r+1)^2 outputs: bytes ~ sum over levels of Q * ((2r+2)^2 + (2r+1)^2) *
+// itemsize, against a few flops per tap. So it is bound by memory traffic,
+// and by the latency of the dependent loads (coords, then patch): 52,800
+// (query, level, target) items per iteration at the flagship shapes, each
+// patch rows of 20-22 bytes at 160-byte strides, which the memory system
+// moves in 32- to 64-byte pieces.
 //
-// Design (the simple first version): one thread per output tap. The 81
-// threads of a query sit next to each other, so one warp touches one or two
-// queries; their corner reads fall in the same few cache lines of the
-// query's patch, which L1 serves after the first miss, and the output store
-// is fully coalesced. The tap itself (corr_lookup_tap.cuh) blends in f32
-// and rounds once to the volume's type (the TPU kernel rounds the y-blend
-// to bf16 before the x-blend, so the two differ by up to a bf16 rounding).
-// Staging the patch in shared memory with cp.async/TMA is left to a later
-// version.
+// Design: one warp per item, items ordered (query position, slot), so
+// neighbouring warps write neighbouring channel blocks of one output row
+// and read the same query's coords. The warp stages the query's
+// (2r+3)^2 patch into shared memory as f32 (all of a lane's loads in
+// flight at once; cells outside the map zero) and, per tap column and
+// row, the first corner's patch index and the fraction, each computed as
+// the plain version computes them per tap; then each lane blends its taps
+// from the patch (at most three per lane for r = 4) with corr_tap::blend,
+// the plain version's rounding order (x-blend per row, then y, no FMA),
+// rounds once to the volume's type, and the 81 outputs go out as one
+// contiguous run. Queries whose patch misses the map (far coordinates)
+// load nothing. The scale 2^-l is a power of two, so x * 2^-l equals the
+// plain version's coords / 2^l bit for bit, and the kernel equals its plain
+// twin (kernels/corr_lookup.py: corr_lookup_pyramid_plain) exactly. The
+// radius is a template parameter, so every per-lane loop is unrolled.
 
-#include "corr_lookup_tap.cuh"
+#include "corr_lookup_table.cuh"
 
 namespace {
 
-__device__ __forceinline__ void store_from_f32(float* p, float v) { *p = v; }
-__device__ __forceinline__ void store_from_f32(__nv_bfloat16* p, float v) {
-  *p = __float2bfloat16(v);  // round to nearest even, as torch's .to()
+using namespace corr_table;
+
+constexpr int kWarps = 8;  // warps per block, one (query, slot) item each
+
+template <typename T, int R>
+__global__ void __launch_bounds__(kWarps * 32)
+corr_lookup_fwd_kernel(const __grid_constant__ LookupTable tab,
+                       const float* __restrict__ coords,
+                       T* __restrict__ out) {
+  constexpr int kWin = Patch<R>::kWin, kTaps = kWin * kWin;
+  __shared__ float patch_s[kWarps][Patch<R>::kCells];
+  __shared__ Axes<R> axes_s[kWarps];
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const unsigned M = (unsigned)tab.queries, S = (unsigned)tab.n_slots;
+  const unsigned item = blockIdx.x * kWarps + warp;
+  if (item >= M * S) return;  // ragged last block (whole warps)
+  const unsigned m = item / S, s = item - m * S;  // < 2^31: checked
+  const LevelDesc& L = tab.level[tab.slot_level[s]];
+
+  const float* c = coords + 2 * ((size_t)tab.slot_target[s] * M + m);
+  const Patch<R> p = make_patch<R>(__fmul_rn(__ldg(c), L.scale),
+                                   __fmul_rn(__ldg(c + 1), L.scale), L.hl,
+                                   L.wl);
+  const T* map = static_cast<const T*>(L.vol) +
+                 ((size_t)tab.slot_k[s] * M + m) * (size_t)(L.hl * L.wl);
+  float* ps = patch_s[warp];
+  Axes<R>& ax = axes_s[warp];
+  stage_patch<R>(p, map, L.hl, L.wl, ps, lane);
+  make_axes<R>(p, ax, lane);
+  __syncwarp();
+
+  T* o = out + (size_t)m * tab.ld + s * kTaps;
+#pragma unroll
+  for (int k = 0; k < (kTaps + 31) / 32; ++k) {
+    const int tp = lane + 32 * k;
+    if (tp >= kTaps) break;
+    const int i = tp / kWin, j = tp - i * kWin;
+    float v00, v01, v10, v11;
+    corners<R>(p, ps, ax, i, j, v00, v01, v10, v11);
+    store_from_f32(o + tp,
+                   corr_tap::blend(v00, v01, v10, v11, ax.fx[j], ax.fy[i]));
+  }
 }
 
-template <typename T>
-__global__ void corr_lookup_fwd_kernel(const T* __restrict__ vol,
-                                       const float* __restrict__ coords,
-                                       T* __restrict__ out, int64_t n_out,
-                                       int hl, int wl, int radius) {
-  const int win = 2 * radius + 1;
-  const int taps = win * win;
-  const int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= n_out) return;  // ragged last block
-  const int64_t q = i / taps;
-  const int t = (int)(i - q * taps);
-  const float x = __ldg(coords + 2 * q) + (float)(t % win - radius);
-  const float y = __ldg(coords + 2 * q + 1) + (float)(t / win - radius);
-  store_from_f32(out + i, corr_tap::bilinear(vol + q * (int64_t)hl * wl, hl,
-                                             wl, x, y));
-}
-
-template <typename T>
-int launch(const void* vol, const void* coords, void* out, int64_t n_query,
-           int hl, int wl, int radius, void* stream) {
-  const int win = 2 * radius + 1;
-  const int64_t n_out = n_query * win * win;
-  if (n_out == 0) return (int)cudaSuccess;
-  const int threads = 256;
-  const int64_t blocks = (n_out + threads - 1) / threads;
-  corr_lookup_fwd_kernel<T><<<(unsigned)blocks, threads, 0,
-                              (cudaStream_t)stream>>>(
-      (const T*)vol, (const float*)coords, (T*)out, n_out, hl, wl, radius);
+template <typename T, int R>
+int launch_r(const LookupTable* tab, const void* coords, void* out,
+             void* stream) {
+  const long long items = tab->queries * tab->n_slots;
+  if (items == 0) return (int)cudaSuccess;
+  const long long blocks = (items + kWarps - 1) / kWarps;
+  corr_lookup_fwd_kernel<T, R><<<(unsigned)blocks, kWarps * 32, 0,
+                                 (cudaStream_t)stream>>>(
+      *tab, (const float*)coords, (T*)out);
   return (int)cudaGetLastError();
+}
+
+template <typename T>
+int launch(const LookupTable* tab, const void* coords, void* out,
+           void* stream) {
+  if (tab->n_slots < 1 || tab->n_slots > kMaxSlots ||
+      tab->queries * tab->n_slots >= (1LL << 31))
+    return (int)cudaErrorInvalidValue;
+  switch (tab->radius) {  // one instantiation per radius: unrolled loops
+    case 1: return launch_r<T, 1>(tab, coords, out, stream);
+    case 2: return launch_r<T, 2>(tab, coords, out, stream);
+    case 3: return launch_r<T, 3>(tab, coords, out, stream);
+    case 4: return launch_r<T, 4>(tab, coords, out, stream);
+    case 5: return launch_r<T, 5>(tab, coords, out, stream);
+    case 6: return launch_r<T, 6>(tab, coords, out, stream);
+    case 7: return launch_r<T, 7>(tab, coords, out, stream);
+    default: return (int)cudaErrorInvalidValue;
+  }
 }
 
 }  // namespace
 
 extern "C" {
 
-// vol (Q, hl, wl) contiguous, coords (Q, 2) f32 contiguous (x, y), out
-// (Q, (2r+1)^2) contiguous in vol's type. Returns cudaGetLastError().
-int corr_lookup_fwd_f32(const void* vol, const void* coords, void* out,
-                        long long n_query, int hl, int wl, int radius,
-                        void* stream) {
-  return launch<float>(vol, coords, out, n_query, hl, wl, radius, stream);
+// tab: the level table (volumes contiguous, all in the kernel's type);
+// coords (T, M, 2) f32 contiguous; out (M, ld) with ld >= (2r+1)^2 n_slots,
+// in the volumes' type. Returns cudaGetLastError().
+int corr_lookup_fwd_f32(const LookupTable* tab, const void* coords,
+                        void* out, void* stream) {
+  return launch<float>(tab, coords, out, stream);
 }
 
-int corr_lookup_fwd_bf16(const void* vol, const void* coords, void* out,
-                         long long n_query, int hl, int wl, int radius,
-                         void* stream) {
-  return launch<__nv_bfloat16>(vol, coords, out, n_query, hl, wl, radius,
-                               stream);
+int corr_lookup_fwd_bf16(const LookupTable* tab, const void* coords,
+                         void* out, void* stream) {
+  return launch<__nv_bfloat16>(tab, coords, out, stream);
 }
 
 }  // extern "C"

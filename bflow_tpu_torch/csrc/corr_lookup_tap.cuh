@@ -1,6 +1,7 @@
 // One bilinear tap of a query's correlation map, shared by the lookup
-// forward kernels (corr_lookup_fwd.cu: f32 and bf16 volumes;
-// corr_lookup_q8.cu: int8 volumes).
+// kernels: corr_lookup_q8.cu (int8 volumes) reads the tap from device
+// memory; corr_lookup_fwd.cu and corr_lookup_bwd.cu (f32 and bf16) blend
+// the corners of a patch staged in shared memory with the same blend().
 //
 // grid_sample(align_corners=True) semantics with zero padding, in map
 // pixels: a corner outside the (hl, wl) map contributes zero. Validity is
@@ -25,6 +26,16 @@ __device__ __forceinline__ float load_f32(const __nv_bfloat16* p) {
 }
 __device__ __forceinline__ float load_f32(const int8_t* p) {
   return (float)__ldg(reinterpret_cast<const signed char*>(p));
+}
+
+// the four corners (row y0: v00, v01; row y0+1: v10, v11) blended at the
+// fractions (fx, fy)
+__device__ __forceinline__ float blend(float v00, float v01, float v10,
+                                       float v11, float fx, float fy) {
+  const float gx = __fsub_rn(1.f, fx), gy = __fsub_rn(1.f, fy);
+  const float top = __fadd_rn(__fmul_rn(v00, gx), __fmul_rn(v01, fx));
+  const float bot = __fadd_rn(__fmul_rn(v10, gx), __fmul_rn(v11, fx));
+  return __fadd_rn(__fmul_rn(top, gy), __fmul_rn(bot, fy));
 }
 
 // the map m (hl, wl) sampled at (x, y)
@@ -59,10 +70,7 @@ __device__ __forceinline__ float bilinear(const T* __restrict__ m, int hl,
       if (vx1) v11 = load_f32(row + ix + 1);
     }
   }
-  const float gx = __fsub_rn(1.f, fx), gy = __fsub_rn(1.f, fy);
-  const float top = __fadd_rn(__fmul_rn(v00, gx), __fmul_rn(v01, fx));
-  const float bot = __fadd_rn(__fmul_rn(v10, gx), __fmul_rn(v11, fx));
-  return __fadd_rn(__fmul_rn(top, gy), __fmul_rn(bot, fy));
+  return blend(v00, v01, v10, v11, fx, fy);
 }
 
 }  // namespace corr_tap

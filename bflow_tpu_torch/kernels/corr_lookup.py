@@ -1,29 +1,46 @@
-"""Windowed bilinear correlation lookup, one pyramid level: CUDA kernel
-wrappers (forward, backward, int8 forward) and their plain PyTorch
-versions, and the int8 quantization of a volume.
+"""Windowed bilinear correlation lookup: CUDA kernel wrappers (the
+all-level forward and backward, the int8 forward) and their plain PyTorch
+versions, the autograd plumbing that accumulates dVol, and the int8
+quantization of a volume.
 
 Counterpart of the TPU kernels bflow_tpu/ops/pallas/corr_lookup_v3.py:
 _fwd_kernel (also with quant=True, lookup_level_slab_q8) and _bwd_kernel
 (custom VJP _lookup_cvjp). The CUDA sources are csrc/corr_lookup_fwd.cu,
-csrc/corr_lookup_q8.cu and csrc/corr_lookup_bwd.cu (their headers say what
-bounds them and how they are laid out). Layout, per level:
+csrc/corr_lookup_bwd.cu (both over the level table of
+csrc/corr_lookup_table.cuh) and csrc/corr_lookup_q8.cu; their headers say
+what bounds them and how they work. One forward launch looks up every
+level of a level table:
 
-  vol     (Q, hl, wl)  each query's own correlation map, f32 or bf16
-                       (int8 for the q8 lookup, with one f32 scale per
-                       query row of w1 queries)
-  coords  (Q, 2)       f32 positions in this level's map pixels, (x, y)
-  out     (Q, (2r+1)^2) taps at (x+dx, y+dy), dy-major, in vol's type
-                       (bf16 for the q8 lookup)
+  table   per level: its volume (Tl, N, h1, w1, hl, wl), f32 or bf16, one
+          (hl, wl) map per query (zero-size maps: a pooled-away level);
+          its base-target indices; its pyramid index l (coords / 2^l)
+  coords  (T, N, h1, w1, 2) f32 base coords, (x, y), in level-0 pixels
+  out     (N, h1, w1, C) in the volumes' type, C = 81 x the table's
+          targets, channels (level, target, dy-major window): the
+          concat=True contract of models.corr.corr_lookup and the matrix
+          the fused convc1 reads
 
-with Q = Tl * N * h1 * w1, the all-pairs volume's own layout. The wrapper
-takes the plain version only for tensors on the CPU; for CUDA tensors it
-launches the kernels (the backward through a torch.autograd.Function) or
-raises.
+The backward launch reads the cotangent of `out` (rows of C channels at
+any row stride), adds every query's patch contribution to one f32 dVol
+accumulator per level, and writes dcoords for the base coords. The
+accumulators belong to a VolumeSink, one per pyramid: its autograd node
+passes the volumes through as a zero-size token that every lookup takes
+as its differentiable input, so it runs after all of them and hands the
+summed buffers to the volumes' producer once per backward pass.
+
+The one-level entries (corr_lookup_level, lookup_bwd_into,
+lookup_bwd_cuda) are the same kernels with a one-level table and
+(Q, hl, wl) volumes, (Q, 2) coords at the level's scale, (Q, 81) taps.
+
+The wrappers take the plain versions only for tensors on the CPU, through
+the same autograd structure; for CUDA tensors they launch the kernels or
+raise.
 """
 
 from __future__ import annotations
 
 import ctypes
+from typing import List, NamedTuple, Optional, Sequence, Tuple
 
 import torch
 
@@ -33,6 +50,10 @@ NAME = "corr_lookup_fwd"
 BWD_NAME = "corr_lookup_bwd"
 Q8_NAME = "corr_lookup_q8"
 MAX_PATCH = 16  # 2r+2 <= 16, the TPU kernel's limit as well
+# csrc/corr_lookup_table.cuh
+MAX_LEVELS = 8
+MAX_SLOTS = 32
+MAX_TARGETS = 255
 
 # kernel launches since the last reset (kernels.reset_launch_counts)
 launches = 0
@@ -80,34 +101,178 @@ def corr_lookup_level_bwd_plain(vol: torch.Tensor, coords: torch.Tensor,
     return dv.to(vol.dtype), dc
 
 
-def _check(vol: torch.Tensor, coords: torch.Tensor, radius: int,
-           dtypes=tuple(_DTYPES)) -> None:
-    if vol.dim() != 3 or coords.dim() != 2 or coords.shape != (
-            vol.shape[0], 2):
-        raise ValueError(
-            f"want vol (Q, hl, wl) and coords (Q, 2), got "
-            f"{tuple(vol.shape)} and {tuple(coords.shape)}")
-    if vol.dtype not in dtypes:
-        raise TypeError(f"vol must be one of {dtypes}, got {vol.dtype}")
-    if coords.dtype != torch.float32:
-        raise TypeError(f"coords must be float32, got {coords.dtype}")
-    if vol.device != coords.device:
-        raise ValueError(f"vol on {vol.device}, coords on {coords.device}")
+# ---------------------------------------------------------------------------
+# the level table and its plain versions
+
+
+class TableLevel(NamedTuple):
+    """One row of the level table: a pyramid level's volume
+    (Tl, N, h1, w1, hl, wl), its base-target indices (Tl of them) and its
+    pyramid index, which scales the base coords by 2^-level."""
+    vol: torch.Tensor
+    targets: Tuple[int, ...]
+    level: int
+
+
+def _level_coords(coords: torch.Tensor, lv: TableLevel) -> torch.Tensor:
+    """(Q, 2) coords of a level's queries: the composition the JAX package
+    runs, coords[idx] / 2^l (exact: a power-of-two scale)."""
+    return (coords[list(lv.targets)] / (2.0 ** lv.level)).reshape(-1, 2)
+
+
+def _level_maps(lv: TableLevel) -> torch.Tensor:
+    """(Q, hl, wl) maps of a level (Q stated: a pooled-away level's maps
+    are empty)."""
+    q = lv.vol.shape[:4].numel()
+    return lv.vol.reshape(q, *lv.vol.shape[-2:])
+
+
+def corr_lookup_pyramid_plain(table: Sequence[TableLevel],
+                              coords: torch.Tensor,
+                              radius: int) -> torch.Tensor:
+    """The all-level lookup as plain PyTorch: per level the index and
+    divide of the base coords, the gather lookup, and the (level, target,
+    window) channel order -> (N, h1, w1, C) in the volumes' type."""
+    _, N, h1, w1, _ = coords.shape
+    parts = []
+    for lv in table:
+        feat = corr_lookup_level_plain(_level_maps(lv),
+                                       _level_coords(coords, lv), radius)
+        parts.append(feat.reshape(len(lv.targets), N, h1, w1, -1)
+                     .permute(1, 2, 3, 0, 4).reshape(N, h1, w1, -1))
+    return torch.cat(parts, dim=-1)
+
+
+def corr_lookup_pyramid_bwd_plain(table: Sequence[TableLevel],
+                                  coords: torch.Tensor, g: torch.Tensor,
+                                  radius: int,
+                                  dvols: Optional[List[torch.Tensor]],
+                                  need_coords: bool = True):
+    """The all-level lookup's VJP as plain PyTorch, for the cotangent g
+    (N, h1, w1, C) of corr_lookup_pyramid_plain's output.
+
+    Per level, corr_lookup_level_bwd_plain (autograd through the f32
+    gather): its dvol, rounded once to the volume's type, is added in f32
+    to dvols[i] (an f32 buffer of level i's volume shape; dvols may be
+    None). Returns dcoords for the base coords (T, N, h1, w1, 2) f32, each
+    target's level contributions scaled by 2^-l and summed in level order
+    from zero, or None without need_coords."""
+    _, N, h1, w1, _ = coords.shape
+    win2 = (2 * radius + 1) ** 2
+    dcoords = torch.zeros_like(coords) if need_coords else None
+    off = 0
+    for i, lv in enumerate(table):
+        tl = len(lv.targets)
+        gl = g[..., off:off + tl * win2].reshape(N, h1, w1, tl, win2)
+        off += tl * win2
+        dv, dc = corr_lookup_level_bwd_plain(
+            _level_maps(lv), _level_coords(coords, lv),
+            gl.permute(3, 0, 1, 2, 4).reshape(-1, win2), radius)
+        if dvols is not None:
+            dvols[i] += dv.reshape(lv.vol.shape).float()
+        if need_coords:
+            idx = list(lv.targets)
+            dcoords[idx] = dcoords[idx] + (
+                dc.reshape(tl, N, h1, w1, 2) / (2.0 ** lv.level))
+    return dcoords
+
+
+# ---------------------------------------------------------------------------
+# the CUDA kernels
+
+
+class _LevelDesc(ctypes.Structure):
+    _fields_ = [("vol", ctypes.c_void_p), ("dvol", ctypes.c_void_p),
+                ("hl", ctypes.c_int), ("wl", ctypes.c_int),
+                ("n_targets", ctypes.c_int), ("scale", ctypes.c_float)]
+
+
+class _LookupTable(ctypes.Structure):
+    """csrc/corr_lookup_table.cuh: LookupTable."""
+    _fields_ = [("level", _LevelDesc * MAX_LEVELS),
+                ("slot_level", ctypes.c_ubyte * MAX_SLOTS),
+                ("slot_k", ctypes.c_ubyte * MAX_SLOTS),
+                ("slot_target", ctypes.c_ubyte * MAX_SLOTS),
+                ("n_slots", ctypes.c_int), ("n_targets", ctypes.c_int),
+                ("radius", ctypes.c_int), ("pad", ctypes.c_int),
+                ("queries", ctypes.c_longlong), ("ld", ctypes.c_longlong)]
+
+
+def _check_radius(radius: int) -> None:
     if not isinstance(radius, int) or radius < 1 or (
             2 * radius + 2 > MAX_PATCH):
         raise ValueError(f"radius must be an int with 1 <= r and "
                          f"2r+2 <= {MAX_PATCH}, got {radius!r}")
 
 
+def _check_table(table: Sequence[TableLevel], coords: torch.Tensor,
+                 radius: int) -> None:
+    """What the kernels take: checked before any pointer is handed over."""
+    _check_radius(radius)
+    if coords.dim() != 5 or coords.shape[-1] != 2:
+        raise ValueError(f"want coords (T, N, h1, w1, 2), got "
+                         f"{tuple(coords.shape)}")
+    if coords.dtype != torch.float32:
+        raise TypeError(f"coords must be float32, got {coords.dtype}")
+    T, N, h1, w1, _ = coords.shape
+    if not table:
+        raise ValueError("empty level table")
+    if len(table) > MAX_LEVELS or T > MAX_TARGETS or sum(
+            len(lv.targets) for lv in table) > MAX_SLOTS:
+        raise ValueError(f"{len(table)} levels, {T} targets: the kernels "
+                         f"take <= {MAX_LEVELS} levels, <= {MAX_TARGETS} "
+                         f"targets and <= {MAX_SLOTS} (level, target) pairs")
+    dtype = table[0].vol.dtype
+    for lv in table:
+        v = lv.vol
+        if v.dim() != 6 or tuple(v.shape[:4]) != (len(lv.targets), N, h1,
+                                                  w1):
+            raise ValueError(f"level {lv.level}: volume {tuple(v.shape)} "
+                             f"for {len(lv.targets)} targets and queries "
+                             f"{(N, h1, w1)}")
+        if v.dtype != dtype or dtype not in _DTYPES:
+            raise TypeError(f"volumes must share one of {tuple(_DTYPES)}, "
+                            f"got {v.dtype}")
+        if v.device != coords.device:
+            raise ValueError(f"volume on {v.device}, coords on "
+                             f"{coords.device}")
+        if not all(0 <= t < T for t in lv.targets) or len(
+                set(lv.targets)) != len(lv.targets):
+            raise ValueError(f"level {lv.level}: targets {lv.targets} of "
+                             f"{T}")
+        if not 0 <= lv.level < 64:
+            raise ValueError(f"level index {lv.level}")
+
+
+def _table_struct(table: Sequence[TableLevel], coords: torch.Tensor,
+                  radius: int, ld: int, dvols=None) -> _LookupTable:
+    tab = _LookupTable()
+    s = 0
+    for i, lv in enumerate(table):
+        d = tab.level[i]
+        d.vol = lv.vol.data_ptr()
+        d.dvol = None if dvols is None else dvols[i].data_ptr()
+        d.hl, d.wl = lv.vol.shape[-2:]
+        d.n_targets = len(lv.targets)
+        d.scale = 2.0 ** -lv.level  # exact in f32 for level < 64
+        for k, t in enumerate(lv.targets):
+            tab.slot_level[s], tab.slot_k[s], tab.slot_target[s] = i, k, t
+            s += 1
+    tab.n_slots = s
+    tab.n_targets = coords.shape[0]
+    tab.radius = radius
+    tab.queries = coords.shape[1] * coords.shape[2] * coords.shape[3]
+    tab.ld = ld
+    return tab
+
+
 _ARGTYPES = {
-    # vol, coords, out, n_query, hl, wl, radius, stream
-    NAME: [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-           ctypes.c_longlong, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+    # table*, coords, out, stream
+    NAME: [ctypes.POINTER(_LookupTable), ctypes.c_void_p, ctypes.c_void_p,
            ctypes.c_void_p],
-    # vol, coords, g, dvol, dcoords, n_query, hl, wl, radius, stream
-    BWD_NAME: [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-               ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong,
-               ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p],
+    # table* (dvol accumulators inside), coords, g, dcoords, stream
+    BWD_NAME: [ctypes.POINTER(_LookupTable), ctypes.c_void_p,
+               ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p],
     # vol, scale, coords, out, n_query, hl, wl, radius, w1, stream
     Q8_NAME: [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
               ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int, ctypes.c_int,
@@ -122,64 +287,283 @@ def _launch(name: str, dtype: torch.dtype, device: torch.device, *args):
     build.launch(fn, device, *args)
 
 
-def _lookup_fwd_cuda(vol: torch.Tensor, coords: torch.Tensor,
-                     radius: int) -> torch.Tensor:
+def _rows(g: torch.Tensor, C: int):
+    """g (N, h1, w1, C) as rows of C channels: (tensor, row stride). A
+    slice of a wider cotangent (the cat of kernel and non-kernel levels)
+    is read in place; any other layout is copied once."""
+    M = g.numel() // C
+    try:
+        rows = g.view(M, C)
+    except RuntimeError:
+        rows = None
+    if rows is None or (C > 1 and rows.stride(1) != 1):
+        g = g.contiguous()
+        return g, C
+    return g, (rows.stride(0) if M > 1 else C)
+
+
+def lookup_pyramid_cuda(table: Sequence[TableLevel], coords: torch.Tensor,
+                        radius: int) -> torch.Tensor:
+    """One launch of the forward kernel over every level of the table ->
+    (N, h1, w1, C), the layout of corr_lookup_pyramid_plain."""
     global launches
-    win = 2 * radius + 1
-    Q, hl, wl = vol.shape
-    if hl == 0 or wl == 0:  # a pooled-away level: every tap is padding
-        return vol.new_zeros((Q, win * win))
-    out = torch.empty((Q, win * win), dtype=vol.dtype, device=vol.device)
-    _launch(NAME, vol.dtype, vol.device, vol.data_ptr(), coords.data_ptr(),
-            out.data_ptr(), Q, hl, wl, radius)
+    _check_table(table, coords, radius)
+    if not all(lv.vol.is_contiguous() for lv in table):
+        raise ValueError("volumes must be contiguous")
+    coords = coords.contiguous()
+    _, N, h1, w1, _ = coords.shape
+    C = sum(len(lv.targets) for lv in table) * (2 * radius + 1) ** 2
+    dtype = table[0].vol.dtype
+    out = torch.empty((N, h1, w1, C), dtype=dtype, device=coords.device)
+    tab = _table_struct(table, coords, radius, C)
+    _launch(NAME, dtype, coords.device, ctypes.byref(tab),
+            coords.data_ptr(), out.data_ptr())
     launches += 1
     return out
 
 
-def lookup_bwd_into(vol: torch.Tensor, coords: torch.Tensor,
-                    g: torch.Tensor, radius: int, dvol, dcoords) -> None:
-    """Launch the backward kernel into dvol (zeroed, vol's shape and
-    type; only each query's in-map patch is written) and dcoords ((Q, 2)
-    f32); either may be None. Contiguous CUDA tensors."""
+def lookup_pyramid_bwd_cuda(table: Sequence[TableLevel],
+                            coords: torch.Tensor, g: torch.Tensor,
+                            radius: int,
+                            dvols: Optional[List[torch.Tensor]],
+                            need_coords: bool = True):
+    """One launch of the backward kernel over every level of the table:
+    adds each level's dvol (rounded to the volume's type per query cell)
+    into the f32 accumulators dvols (or none), and returns dcoords for the
+    base coords (T, N, h1, w1, 2) f32 (or None)."""
     global bwd_launches
-    Q, hl, wl = vol.shape
-    if hl == 0 or wl == 0 or (dvol is None and dcoords is None):
-        return  # a pooled-away level has zero gradients
-    _launch(BWD_NAME, vol.dtype, vol.device, vol.data_ptr(),
+    _check_table(table, coords, radius)
+    if not all(lv.vol.is_contiguous() for lv in table):
+        raise ValueError("volumes must be contiguous")
+    _, N, h1, w1, _ = coords.shape
+    C = sum(len(lv.targets) for lv in table) * (2 * radius + 1) ** 2
+    if tuple(g.shape) != (N, h1, w1, C):
+        raise ValueError(f"cotangent {tuple(g.shape)}, want "
+                         f"{(N, h1, w1, C)}")
+    if dvols is not None and not all(
+            b.dtype == torch.float32 and b.is_contiguous()
+            and b.shape == lv.vol.shape and b.device == coords.device
+            for b, lv in zip(dvols, table)):
+        raise ValueError("dvol accumulators must be contiguous f32 "
+                         "tensors of the volumes' shapes")
+    if dvols is None and not need_coords:
+        return None
+    coords = coords.contiguous()
+    dtype = table[0].vol.dtype
+    g, ld = _rows(g.to(dtype), C)
+    dcoords = torch.empty_like(coords) if need_coords else None
+    tab = _table_struct(table, coords, radius, ld, dvols)
+    _launch(BWD_NAME, dtype, coords.device, ctypes.byref(tab),
             coords.data_ptr(), g.data_ptr(),
-            None if dvol is None else dvol.data_ptr(),
-            None if dcoords is None else dcoords.data_ptr(),
-            Q, hl, wl, radius)
+            None if dcoords is None else dcoords.data_ptr())
     bwd_launches += 1
+    return dcoords
+
+
+def _pyramid_fwd(table, coords, radius):
+    if coords.device.type == "cpu":
+        return corr_lookup_pyramid_plain(table, coords, radius)
+    if coords.device.type != "cuda":
+        raise ValueError(f"unsupported device {coords.device}")
+    return lookup_pyramid_cuda(table, coords, radius)
+
+
+def _pyramid_bwd(table, coords, g, radius, dvols, need_coords):
+    if coords.device.type == "cpu":
+        return corr_lookup_pyramid_bwd_plain(table, coords, g, radius,
+                                             dvols, need_coords)
+    return lookup_pyramid_bwd_cuda(table, coords, g, radius, dvols,
+                                   need_coords)
+
+
+# ---------------------------------------------------------------------------
+# autograd: one dVol accumulator per level for a whole backward pass
+
+
+class _Accumulators:
+    """The f32 dVol buffers of one backward pass, per volume of a table."""
+
+    def __init__(self, vols: Sequence[torch.Tensor]):
+        self.vols = [v.detach() for v in vols]
+        self._task = None
+        self._bufs: Optional[List[torch.Tensor]] = None
+
+    def buffers(self, node) -> Optional[List[torch.Tensor]]:
+        """The running backward pass's buffers, allocated zeroed on first
+        use, or None when that pass does not run the sink's node."""
+        if node is None or not torch._C._will_engine_execute_node(node):
+            return None
+        task = torch._C._current_graph_task_id()
+        if self._bufs is None or self._task != task:  # a new pass
+            self._bufs = [torch.zeros(v.shape, dtype=torch.float32,
+                                      device=v.device) for v in self.vols]
+            self._task = task
+        return self._bufs
+
+    def take(self):
+        bufs, self._bufs, self._task = self._bufs, None, None
+        if bufs is None:
+            return tuple(None for _ in self.vols)
+        return tuple(b if v.dtype == torch.float32 else b.to(v.dtype)
+                     for b, v in zip(bufs, self.vols))
+
+
+class _SinkFn(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, acc, *vols):
+        ctx.acc = acc
+        return vols[0].new_empty(0)
+
+    @staticmethod
+    def backward(ctx, _token_grad):
+        return (None, *ctx.acc.take())
+
+
+class VolumeSink:
+    """The dVol accumulators of one pyramid's kernel-routed volumes.
+
+    token() passes the volumes through an autograd node as a zero-size
+    token, once; every lookup of the pyramid takes the token as its
+    differentiable input. In a backward pass the lookups add into one f32
+    buffer per volume, allocated zeroed by the first of them; the sink's
+    node runs after all of them (it consumes their token gradients) and
+    returns the buffers, rounded to each volume's type, as the volumes'
+    gradients, once. A pass that does not reach the volumes (a
+    torch.autograd.grad for the coords only) allocates nothing. No
+    reference leads from the node back to the sink, so a pyramid and its
+    graph are freed together."""
+
+    def __init__(self):
+        self._acc: Optional[_Accumulators] = None
+        self._token: Optional[torch.Tensor] = None
+        self._key = None
+
+    def token(self, vols: Sequence[torch.Tensor]):
+        """(token, accumulators) for lookups of these volumes: the sink's
+        own for the volumes of its first call, a one-off for others."""
+        key = [(v.data_ptr(), tuple(v.shape)) for v in vols]
+        if self._token is None:
+            self._acc = _Accumulators(vols)
+            self._token = _SinkFn.apply(self._acc, *vols)
+            self._key = key
+        elif key != self._key:
+            return VolumeSink().token(vols)
+        return self._token, self._acc
+
+
+class _PyramidLookupFn(torch.autograd.Function):
+    """The all-level lookup; its backward is the accumulating VJP."""
+
+    @staticmethod
+    def forward(ctx, token, coords, acc, table, radius):
+        ctx.acc, ctx.table, ctx.radius = acc, table, radius
+        ctx.node = token.grad_fn  # the sink's node, or None
+        ctx.save_for_backward(coords)
+        return _pyramid_fwd(table, coords, radius)
+
+    @staticmethod
+    @torch.autograd.function.once_differentiable
+    def backward(ctx, g):
+        (coords,) = ctx.saved_tensors
+        dvols = None if ctx.acc is None else ctx.acc.buffers(ctx.node)
+        dcoords = _pyramid_bwd(ctx.table, coords, g, ctx.radius, dvols,
+                               ctx.needs_input_grad[1])
+        return None, dcoords, None, None, None
+
+
+def corr_lookup_pyramid(table: Sequence[TableLevel], coords: torch.Tensor,
+                        radius: int,
+                        sink: Optional[VolumeSink] = None) -> torch.Tensor:
+    """The all-level lookup (N, h1, w1, C) of the module docstring: one
+    kernel launch for CUDA tensors, corr_lookup_pyramid_plain for CPU
+    tensors. Under autograd, dVol goes through ``sink`` (one per pyramid,
+    serving the table's volumes in table order, so that every iteration's
+    lookups share its accumulators); without one a sink is made for this
+    call."""
+    table = tuple(table)
+    _check_table(table, coords, radius)
+    vol_grad = any(lv.vol.requires_grad for lv in table)
+    if not torch.is_grad_enabled() or not (vol_grad or coords.requires_grad):
+        return _pyramid_fwd(table, coords.detach(), radius)
+    token, acc = coords.new_empty(0), None
+    if vol_grad:
+        token, acc = (sink or VolumeSink()).token([lv.vol for lv in table])
+    plain = tuple(TableLevel(lv.vol.detach(), lv.targets, lv.level)
+                  for lv in table)
+    return _PyramidLookupFn.apply(token, coords, acc, plain, radius)
+
+
+# ---------------------------------------------------------------------------
+# one level: (Q, hl, wl) volume, (Q, 2) coords at the level's scale
+
+
+def _check(vol: torch.Tensor, coords: torch.Tensor, radius: int,
+           dtypes=tuple(_DTYPES)) -> None:
+    if vol.dim() != 3 or coords.dim() != 2 or coords.shape != (
+            vol.shape[0], 2):
+        raise ValueError(
+            f"want vol (Q, hl, wl) and coords (Q, 2), got "
+            f"{tuple(vol.shape)} and {tuple(coords.shape)}")
+    if vol.dtype not in dtypes:
+        raise TypeError(f"vol must be one of {dtypes}, got {vol.dtype}")
+    if coords.dtype != torch.float32:
+        raise TypeError(f"coords must be float32, got {coords.dtype}")
+    if vol.device != coords.device:
+        raise ValueError(f"vol on {vol.device}, coords on {coords.device}")
+    _check_radius(radius)
+
+
+def _one_level(vol: torch.Tensor, coords: torch.Tensor):
+    """A one-level table over one target with Q queries, and its coords."""
+    Q, hl, wl = vol.shape
+    return ((TableLevel(vol.reshape(1, 1, 1, Q, hl, wl), (0,), 0),),
+            coords.reshape(1, 1, 1, Q, 2))
+
+
+def lookup_bwd_into(vol: torch.Tensor, coords: torch.Tensor,
+                    g: torch.Tensor, radius: int, dvol,
+                    need_coords: bool = True):
+    """One backward launch for one level: adds dvol (rounded to vol's type
+    per cell) into the f32 accumulator ``dvol`` of vol's shape (or None)
+    and returns dcoords (Q, 2) f32 (or None). CUDA tensors."""
+    table, c = _one_level(vol, coords)
+    Q = vol.shape[0]
+    dc = lookup_pyramid_bwd_cuda(
+        table, c, g.reshape(1, 1, Q, -1), radius,
+        None if dvol is None else [dvol.reshape(table[0].vol.shape)],
+        need_coords)
+    return None if dc is None else dc.reshape(Q, 2)
 
 
 def lookup_bwd_cuda(vol: torch.Tensor, coords: torch.Tensor,
                     g: torch.Tensor, radius: int, need_vol: bool = True,
                     need_coords: bool = True):
-    """(dvol or None, dcoords or None) through the backward kernel."""
+    """(dvol or None, dcoords or None) of one level through the backward
+    kernel: dvol zeroed, then filled, in vol's type."""
     Q = vol.shape[0]
     win = 2 * radius + 1
     if g.shape != (Q, win * win):
         raise ValueError(f"cotangent {tuple(g.shape)}, want {(Q, win * win)}")
-    # the cotangent of the fused convc1 or of the concat path's
-    # permute/cat arrives strided
-    g = g.to(vol.dtype).contiguous()
-    dvol = torch.zeros_like(vol) if need_vol else None
-    dcoords = torch.zeros_like(coords) if need_coords else None
-    lookup_bwd_into(vol, coords, g, radius, dvol, dcoords)
+    acc = (torch.zeros(vol.shape, dtype=torch.float32, device=vol.device)
+           if need_vol else None)
+    dcoords = lookup_bwd_into(vol, coords, g, radius, acc, need_coords)
+    dvol = None if acc is None else acc.to(vol.dtype)
     return dvol, dcoords
 
 
 class _LookupFn(torch.autograd.Function):
-    """The CUDA lookup with the CUDA backward as its VJP."""
+    """The one-level CUDA lookup with the CUDA backward as its VJP."""
 
     @staticmethod
     def forward(ctx, vol, coords, radius):
         ctx.radius = radius
         ctx.save_for_backward(vol, coords)
-        return _lookup_fwd_cuda(vol, coords, radius)
+        table, c = _one_level(vol, coords)
+        return lookup_pyramid_cuda(table, c, radius).reshape(vol.shape[0],
+                                                             -1)
 
     @staticmethod
+    @torch.autograd.function.once_differentiable
     def backward(ctx, g):
         vol, coords = ctx.saved_tensors
         need_vol, need_coords = ctx.needs_input_grad[:2]
@@ -190,11 +574,12 @@ class _LookupFn(torch.autograd.Function):
 
 def corr_lookup_level(vol: torch.Tensor, coords: torch.Tensor,
                       radius: int) -> torch.Tensor:
-    """(Q, hl, wl) volume, (Q, 2) coords -> (Q, (2r+1)^2) taps.
+    """(Q, hl, wl) volume, (Q, 2) coords -> (Q, (2r+1)^2) taps: the
+    one-level entry.
 
-    CUDA tensors go through the hand-written kernels (forward, and the
-    backward kernel under autograd), CPU tensors through
-    corr_lookup_level_plain, whose gradient is torch's own."""
+    CUDA tensors go through the hand-written kernels with a one-level
+    table (forward, and the backward kernel under autograd), CPU tensors
+    through corr_lookup_level_plain, whose gradient is torch's own."""
     _check(vol, coords, radius)
     if vol.device.type == "cpu":
         return corr_lookup_level_plain(vol, coords, radius)

@@ -12,7 +12,10 @@ ordered level-major, then target (ascending base index), then the
 
 Lookup methods ('auto' and 'pallas' are the lookup kernel, which is what
 'auto' resolves to on the JAX package's accelerator):
-  auto, pallas  the CUDA lookup kernel (its plain version on the CPU)
+  auto, pallas  the CUDA lookup kernel, every level in one launch per call
+                (its plain version on the CPU); under autograd the levels'
+                dVol accumulates in one buffer per level for all of a
+                pyramid's lookups (kernels.corr_lookup.VolumeSink)
   pallas_q8     the int8 kernel on the levels whose row count, padded to
                 16 as in the JAX package, is >= 32; the others as 'pallas'
                 (inference only)
@@ -30,9 +33,11 @@ from typing import List, Sequence, Tuple, Union
 import torch
 
 from bflow_tpu_torch.kernels.corr_lookup import (
-    corr_lookup_level,
+    TableLevel,
+    VolumeSink,
     corr_lookup_level_plain,
     corr_lookup_level_q8,
+    corr_lookup_pyramid,
     quantize_volume,
 )
 
@@ -40,6 +45,17 @@ from bflow_tpu_torch.kernels.corr_lookup import (
 # volume an (int8 volume, scale) pair on the levels pallas_q8 quantizes.
 CorrLevel = Tuple[Tuple[int, ...],
                   Union[torch.Tensor, Tuple[torch.Tensor, torch.Tensor]]]
+
+
+class CorrPyramid(list):
+    """The list of CorrLevel that the pyramid builders return, carrying
+    the VolumeSink that every lookup of it shares under autograd (a plain
+    list works too: each corr_lookup call then makes its own sink)."""
+
+    def __init__(self, levels=()):
+        super().__init__(levels)
+        self.sink = VolumeSink()
+
 
 KERNEL_METHODS = ("auto", "pallas", "pallas_q8")
 METHODS = (*KERNEL_METHODS, "gather", "onehot")
@@ -103,9 +119,9 @@ def build_corr_pyramid(fmap_ref: torch.Tensor, fmap_tgt: torch.Tensor,
     T = fmap_ref.shape[0]
     assert len(levels_per_target) == T, (levels_per_target, T)
     per_level = level_target_indices(levels_per_target)
-    pyramid: List[CorrLevel] = [
+    pyramid = CorrPyramid([
         (per_level[0], all_pairs_correlation(fmap_ref, fmap_tgt, precision))
-    ]
+    ])
     prev_idx, prev_tgt = per_level[0], fmap_tgt
     for idx_tuple in per_level[1:]:
         sel = [prev_idx.index(i) for i in idx_tuple]
@@ -135,10 +151,10 @@ def build_pyramid_for_method(fmap_ref: torch.Tensor, fmap_tgt: torch.Tensor,
                                  precision)
     if method != "pallas_q8":
         return pyramid
-    return [(idx, quantize_volume(vol)
-             if quantizes(vol.shape[4])
-             and not 0 <= onehot_from_level <= lvl else vol)
-            for lvl, (idx, vol) in enumerate(pyramid)]
+    return CorrPyramid((idx, quantize_volume(vol)
+                        if quantizes(vol.shape[4])
+                        and not 0 <= onehot_from_level <= lvl else vol)
+                       for lvl, (idx, vol) in enumerate(pyramid))
 
 
 def lookup_level_onehot(vol: torch.Tensor, c: torch.Tensor, radius: int,
@@ -195,22 +211,37 @@ def corr_lookup(
       method: one of METHODS (module docstring); the kernels run their
         plain versions for CPU tensors.
       concat: True -> one (N, h1, w1, C) map, channels (level, target,
-        window). False -> the per-level (Tl, N, h1, w1, (2r+1)^2) list.
+        window). False -> the per-level (Tl, N, h1, w1, (2r+1)^2) list
+        (views of the concatenated map where the lookup kernel wrote it).
       precision: the one-hot matmuls' type ('float32' | 'bfloat16').
       onehot_from_level: with a kernel method, levels >= this index (when
         >= 0) take the one-hot lookup instead.
+
+    With a kernel method, the levels that neither pallas_q8 quantizes nor
+    onehot_from_level sends to the one-hot lookup (a contiguous run of
+    levels) go through one launch of the lookup kernel, which reads the
+    base coords and writes their channels of the concatenated map.
     """
     if method not in METHODS:
         raise NotImplementedError(
             f"lookup_method={method!r} is not one of the JAX package's "
             f"lookup methods {METHODS}")
-    T, N, h1, w1, _ = coords.shape
-    outs: List[torch.Tensor] = []
+    _, N, h1, w1, _ = coords.shape
+    win2 = (2 * radius + 1) ** 2
+    table: List[TableLevel] = []
+    # per level, in level order: a (Tl, N, h1, w1, win2) lookup, or None
+    # for the levels of the kernel's table
+    outs: List[Union[torch.Tensor, None]] = []
     for lvl, (target_idx, vol) in enumerate(pyramid):
-        c = coords[list(target_idx)] / (2.0 ** lvl)
-        q = len(target_idx) * N * h1 * w1
         onehot_here = (method in KERNEL_METHODS
                        and 0 <= onehot_from_level <= lvl)
+        if method in KERNEL_METHODS and not onehot_here and not isinstance(
+                vol, tuple):
+            table.append(TableLevel(vol, tuple(target_idx), lvl))
+            outs.append(None)
+            continue
+        c = coords[list(target_idx)] / (2.0 ** lvl)
+        q = len(target_idx) * N * h1 * w1
         if method == "onehot" or onehot_here:
             feat = lookup_level_onehot(vol, c, radius, precision)
             if onehot_here:
@@ -219,14 +250,27 @@ def corr_lookup(
             vq, scale = vol
             feat = corr_lookup_level_q8(vq.reshape(q, *vq.shape[-2:]),
                                         scale, c.reshape(q, 2), radius)
-        else:
-            lookup = (corr_lookup_level_plain if method == "gather"
-                      else corr_lookup_level)
+        else:  # gather
             hl, wl = vol.shape[-2:]
-            feat = lookup(vol.reshape(q, hl, wl), c.reshape(q, 2), radius)
-        outs.append(feat.reshape(len(target_idx), N, h1, w1, -1))
+            feat = corr_lookup_level_plain(vol.reshape(q, hl, wl),
+                                           c.reshape(q, 2), radius)
+        outs.append(feat.reshape(len(target_idx), N, h1, w1, win2))
+    # per level (Tl, N, h1, w1, win2): the kernel levels as views of its
+    # map (N, h1, w1, C), in table order
+    kmap = None
+    if table:
+        kmap = corr_lookup_pyramid(table, coords, radius,
+                                   getattr(pyramid, "sink", None))
+        kviews = kmap.reshape(N, h1, w1, -1, win2).permute(3, 0, 1, 2, 4)
+        s = 0
+        for lvl, feat in enumerate(outs):
+            if feat is None:
+                tl = len(pyramid[lvl][0])
+                outs[lvl] = kviews[s:s + tl]
+                s += tl
     if not concat:
         return outs
-    return torch.cat(
-        [f.permute(1, 2, 3, 0, 4).reshape(N, h1, w1, -1) for f in outs],
-        dim=-1)
+    if len(table) == len(outs):
+        return kmap
+    return torch.cat([f.permute(1, 2, 3, 0, 4) for f in outs],
+                     dim=3).reshape(N, h1, w1, -1)

@@ -9,8 +9,9 @@ params (N, H, W, P, 2). Inside, activations are NCHW.
 
 Per forward: the encoders and the correlation pyramid run once, then
 ``iters`` refinement steps each evaluate the Bezier curves at the static
-lookup times, look up the correlation windows (one lookup-kernel launch per
-pyramid level) and run the update block; the last step's curves are
+lookup times, look up the correlation windows (one lookup-kernel launch for
+every pyramid level, writing the (N, h1, w1, C) map that convc1 reads) and
+run the update block; the last step's curves are
 convex-upsampled (in training, every step's). With ``remat_updates`` the
 update block is recomputed in the backward pass instead of keeping its
 activations (torch.utils.checkpoint), as flax's nn.checkpoint does.
@@ -197,7 +198,6 @@ class RAFTSpline(nn.Module):
             coords1 = coords0[None] + bezier.flow_at(ts)
             corr = corr_lookup(pyramid, coords1, cfg.radius,
                                method=cfg.lookup_method,
-                               concat=not cfg.fuse_corr_conv,
                                precision=cfg.corr_precision,
                                onehot_from_level=cfg.onehot_from_level)
             bez_ch = bezier_to_channels(bezier)

@@ -4,7 +4,9 @@ Counterpart of bflow_tpu/models/update.py, NCHW. The Bezier parameter
 channels fed to the convolutions are dimension-major (x_P1..x_Pn,
 y_P1..y_Pn), as in the reference, so imported weights line up channel for
 channel. The correlation input keeps the JAX layout: one (N, h1, w1, C)
-map, or the per-level (Tl, N, h1, w1, (2r+1)^2) lookups (fuse_corr_conv).
+map (the lookup kernel's output, which the fused convc1 of
+fuse_corr_conv reads as its input matrix), or the per-level
+(Tl, N, h1, w1, (2r+1)^2) lookups.
 
 Under ``pallas_conv`` the convs follow the JAX package's dispatch
 (bflow_tpu/models/update.py): every conv takes the conv3x3 kernel where
@@ -130,6 +132,7 @@ class BasicMotionEncoder(nn.Module):
         bz = 2 * cfg.bezier_degree
         self.corr_planes = cfg.corr_planes
         self.compute_dtype = cdt
+        self.fuse = cfg.fuse_corr_conv
         # convc1 holds the parameters only: forward contracts them itself
         self.convc1 = Conv2d(cfg.corr_planes, 256, 1, compute_dtype=cdt)
         self.convc2 = Conv2d(256, 192, 3, padding=1, compute_dtype=cdt,
@@ -145,31 +148,37 @@ class BasicMotionEncoder(nn.Module):
     def _corr_features(
         self, corr: Union[torch.Tensor, List[torch.Tensor]],
     ) -> torch.Tensor:
-        """convc1 + ReLU over the correlation lookups -> (N, 256, h1, w1)."""
+        """convc1 + ReLU over the correlation lookups -> (N, 256, h1, w1).
+
+        corr is the (N, h1, w1, C) map in (level, target, window) channel
+        order, or the per-level (Tl, N, h1, w1, (2r+1)^2) lookups, which
+        are concatenated into that map first. With fuse_corr_conv (and for
+        the per-level form) the JAX package's fused form: the weights are
+        rounded to the compute dtype, the contraction accumulates in f32,
+        the f32 bias is added, then one rounding and the ReLU (the
+        per-level partial sums, as one product). Otherwise the concat
+        form: a 1x1 conv in the compute dtype."""
         cdt = self.compute_dtype
         w = self.convc1.weight.reshape(256, self.corr_planes)
         b = self.convc1.bias
         if isinstance(corr, (list, tuple)):
-            # fused form: the per-level lookups in (level, target, window)
-            # order are convc1's input channels. The weights are rounded
-            # to the compute dtype, the contraction accumulates in f32,
-            # the f32 bias is added, then one rounding and the ReLU: the
-            # JAX package's per-level partial sums, as one product.
-            Tl, N, h1, w1, _ = corr[0].shape
+            _, N, h1, w1, _ = corr[0].shape
             x = torch.cat([f.permute(1, 2, 3, 0, 4).reshape(N * h1 * w1, -1)
                            for f in corr], dim=1)
-            if x.shape[1] != self.corr_planes:
-                raise ValueError((x.shape, self.corr_planes))
+            fused = True
+        else:
+            N, h1, w1, _ = corr.shape
+            x = corr.reshape(N * h1 * w1, -1)
+            fused = self.fuse
+        if x.shape[1] != self.corr_planes:
+            raise ValueError((tuple(x.shape), self.corr_planes))
+        if fused:
             if cdt is not None:
                 w = w.to(cdt)
                 x = x.to(cdt)
             y = torch.addmm(b.float(), x.float(), w.float().t())
             y = y.to(w.dtype)
         else:
-            N, h1, w1, C = corr.shape
-            if C != self.corr_planes:
-                raise ValueError((corr.shape, self.corr_planes))
-            x = corr.reshape(-1, C)
             if cdt is not None:
                 x, w, b = x.to(cdt), w.to(cdt), b.to(cdt)
             y = F.linear(x, w, b)

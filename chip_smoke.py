@@ -10,16 +10,23 @@ toolkit (nvcc). Phases, each printing JSON lines:
   2. build        nvcc builds every kernel from bflow_tpu_torch/csrc/
   3. kernel       each kernel against its plain PyTorch version, with
                   times, bound and the one-call PyTorch yardstick: the
-                  lookup forward and backward at the flagship level shapes
-                  (f32 and bf16); (3c) the int8 lookup at the two levels
-                  pallas_q8 quantizes, and the stem and conv3x3 kernels at
-                  every flagship shape their gates pass, on channels-last
-                  and NCHW-contiguous inputs, with the wrapper's layout
-                  copies and prepared weights counted and gradients
-                  through their autograd.Functions included
+                  all-level lookup forward (one launch for the four
+                  flagship levels, f32 and bf16, exact, and each level
+                  against the one-level entry); (3b) its backward, 12
+                  iterations accumulated into one f32 dVol buffer per
+                  level at the flagship (bf16) and DSEC training (f32)
+                  shapes, twice, bitwise equal, and the one-level entries;
+                  (3c) the int8 lookup at the two levels pallas_q8
+                  quantizes (bit-equal), and the stem and conv3x3 kernels
+                  at every flagship shape their gates pass, on
+                  channels-last and NCHW-contiguous inputs, with the
+                  wrapper's layout copies and prepared weights counted and
+                  gradients through their autograd.Functions included
   4. forward      the flagship RAFT-Spline inference forward (480x640, B=1,
                   bf16, 12 iterations) through build_model(); launch counts
-                  reset before and read after; ms/forward, fields/s, memory;
+                  reset before and read after (one all-level lookup launch
+                  per iteration); ms/forward, fields/s, memory; a profile
+                  of one forward (device calls, direct_copy);
                   (4b, opt_forward) the same with pallas_q8, pallas_stem and
                   pallas_conv, launches held to the count the copied gates
                   give, layout copies to one per conv whose channel count
@@ -30,16 +37,18 @@ toolkit (nvcc). Phases, each printing JSON lines:
                   vs the default path (recorded)
   6. train        the DSEC training step (f32, 12 iterations, B=3 at
                   288x384, AdamW + OneCycle) through make_train_step: 2
-                  warm-up + 5 timed steps on one batch, launches per step,
-                  loss per step, memory; then one bf16 flagship step, and
+                  warm-up + 5 timed steps on one batch, launches per step
+                  (12 lookup forward, 12 backward), loss per step, memory,
+                  a profile of one step (one dVol zeroing per level, no
+                  dVol sum); then one bf16 flagship step, and
                   (6c, train_conv) one with the stem and conv kernels, its
                   gradients vs the plain twins'
   7. train_parity kernel path vs gather path, loss and gradients of a step
   8. kernels      one JSON line summing up every kernel
 and, as the last line, {"ok": true, "device": {...}}. Any failure exits
-nonzero before that line; so does a machine without CUDA. --profile DIR
-adds a torch.profiler breakdown of one forward and one train step (kernels
-by device time, idle share) and writes their chrome traces into DIR.
+nonzero before that line; so does a machine without CUDA. The profiles
+(torch.profiler: kernels by device time, idle share) always run; --profile
+DIR also writes their chrome traces into DIR.
 --conv-sweep runs phases 1 and 2, then times every tile variant of the conv
 kernels at every flagship conv shape beside the one the tile plan picks,
 and stops.
@@ -202,8 +211,9 @@ def grid_sample_call(vol: torch.Tensor, coords: torch.Tensor, radius: int):
                                  padding_mode="zeros", align_corners=True)
 
 
-def check_lookup_level(Tl, hl, wl, dtype, seed, timing=True):
-    """Kernel vs plain at one level shape; returns the phase-3 record."""
+def check_lookup_level(Tl, hl, wl, dtype, seed):
+    """The one-level entry (the forward kernel with a one-level table) vs
+    its plain version at one level shape; returns the record."""
     vol, coords = level_inputs(Tl, hl, wl, dtype, seed)
     got = klookup.corr_lookup_level(vol, coords, RADIUS)
     torch.cuda.synchronize()
@@ -212,45 +222,22 @@ def check_lookup_level(Tl, hl, wl, dtype, seed, timing=True):
           f"lookup output {got.dtype} {tuple(got.shape)}")
     err = (got.float() - want.float()).abs().max().item()
     ref = want.float().abs().max().item()
-    rec = {"Tl": Tl, "hl": hl, "wl": wl, "queries": vol.shape[0],
-           "dtype": str(dtype).replace("torch.", ""),
-           "max_abs_err": err, "max_abs_ref": ref,
-           "tol_rel": TOL[dtype], "ok": err <= TOL[dtype] * ref}
-    if not timing:
-        return rec
-    bound_bytes = lookup_bound_bytes(vol, coords, RADIUS)
-    rec.update(
-        ms=time_ms(lambda: klookup.corr_lookup_level(vol, coords, RADIUS)),
-        warm_ms=time_ms(
-            lambda: klookup.corr_lookup_level(vol, coords, RADIUS),
-            cold=False),
-        plain_ms=time_ms(
-            lambda: klookup.corr_lookup_level_plain(vol, coords, RADIUS)),
-        bound_bytes=bound_bytes,
-        bound_ms=bound_bytes / HBM_BYTES_PER_S * 1e3,
-    )
-    try:
-        lib = grid_sample_call(vol, coords, RADIUS)
-        lib()
-        rec["library_dtype"] = rec["dtype"]
-    except RuntimeError as exc:  # a yardstick only: time it in f32
-        rec["library_note"] = f"grid_sample refused {dtype}: {exc}"[:200]
-        lib = grid_sample_call(vol.float(), coords, RADIUS)
-        rec["library_dtype"] = "float32"
-    rec["library_ms"] = time_ms(lib)
-    return rec
+    return {"Tl": Tl, "hl": hl, "wl": wl, "queries": vol.shape[0],
+            "dtype": str(dtype).replace("torch.", ""),
+            "max_abs_err": err, "max_abs_ref": ref, "ok": err == 0.0}
 
 
 def lookup_bwd_bound_bytes(vol: torch.Tensor, coords: torch.Tensor,
                            radius: int) -> int:
     """Bytes the lookup's VJP must move for these inputs: per query its
-    cotangents, coords and dcoords, and the part of its (2r+2)^2 patch
-    inside the map, read from vol and written to dvol."""
+    cotangents, coords and dcoords, the part of its (2r+2)^2 patch inside
+    the map read from vol, and that patch of the f32 dVol accumulator read
+    and written (4 + 4 bytes per cell: the backward adds into it)."""
     Q = vol.shape[0]
     item = vol.element_size()
     fwd = lookup_bound_bytes(vol, coords, radius)  # patch + coords + taps
-    patch = fwd - Q * 8 - Q * (2 * radius + 1) ** 2 * item
-    return int(2 * patch + Q * 16 + Q * (2 * radius + 1) ** 2 * item)
+    patch = (fwd - Q * 8 - Q * (2 * radius + 1) ** 2 * item) // item
+    return int(patch * (item + 8) + Q * 16 + Q * (2 * radius + 1) ** 2 * item)
 
 
 def grid_sample_vjp_call(vol: torch.Tensor, coords: torch.Tensor,
@@ -267,9 +254,10 @@ def grid_sample_vjp_call(vol: torch.Tensor, coords: torch.Tensor,
                                        retain_graph=True)
 
 
-def check_lookup_bwd_level(Tl, hl, wl, dtype, seed, timing=True):
-    """Backward kernel vs its plain twin at one level shape, two calls
-    bitwise equal; returns the phase-3b record."""
+def check_lookup_bwd_level(Tl, hl, wl, dtype, seed):
+    """The one-level backward entry (zeroed dvol, then the kernel with a
+    one-level table) vs its plain twin at one level shape, two calls
+    bitwise equal; returns the record."""
     vol, coords = level_inputs(Tl, hl, wl, dtype, seed)
     gen = torch.Generator(device="cuda").manual_seed(seed + 100)
     Q = vol.shape[0]
@@ -288,34 +276,207 @@ def check_lookup_bwd_level(Tl, hl, wl, dtype, seed, timing=True):
     err_c = (dc - want_c).abs().max().item()
     ref_c = want_c.abs().max().item()
     repeat = bool(torch.equal(dv, dv2) and torch.equal(dc, dc2))
-    rec = {"Tl": Tl, "hl": hl, "wl": wl, "queries": Q,
+    return {"Tl": Tl, "hl": hl, "wl": wl, "queries": Q,
+            "dtype": str(dtype).replace("torch.", ""),
+            "dvol_max_abs_err": err_v, "dvol_max_abs_ref": ref_v,
+            "dcoords_max_abs_err": err_c, "dcoords_max_abs_ref": ref_c,
+            "tol_rel": [tol_v, tol_c], "bitwise_repeatable": repeat,
+            "ok": (err_v <= tol_v * ref_v and err_c <= tol_c * ref_c
+                   and repeat)}
+
+
+# the all-level lookup: the flagship pyramid's targets per level
+PYRAMID_TARGETS = [(0, 1, 2, 3, 4), (3, 4), (3, 4), (3, 4)]
+
+
+def pyramid_inputs(n, h1, w1, dtype, seed, device="cuda"):
+    """A level table (the flagship's targets per level, (n, h1, w1)
+    queries, maps h1 x w1 halved per level) and base coords (5, n, h1, w1,
+    2): each query's own grid position plus a few pixels of flow, one in
+    ten far outside the map (+-1e4), one in ten just below a multiple of
+    8 (just below an integer at every level: the kernels' rounding
+    edge)."""
+    g = torch.Generator(device=device).manual_seed(seed)
+    table = []
+    for lvl, idx in enumerate(PYRAMID_TARGETS):
+        vol = torch.randn(len(idx), n, h1, w1, h1 >> lvl, w1 >> lvl,
+                          generator=g, device=device).to(dtype)
+        table.append(klookup.TableLevel(vol, idx, lvl))
+    ii, jj = torch.meshgrid(torch.arange(h1, device=device),
+                            torch.arange(w1, device=device), indexing="ij")
+    base = torch.stack([jj, ii], dim=-1).float().expand(5, n, h1, w1, 2)
+    c = base + 3.0 * torch.randn(5, n, h1, w1, 2, generator=g, device=device)
+    far = torch.rand(5, n, h1, w1, 1, generator=g, device=device) < 0.1
+    sign = torch.where(torch.rand(5, n, h1, w1, 2, generator=g,
+                                  device=device) < 0.5, -1.0, 1.0)
+    c = torch.where(far, 1e4 * sign, c)
+    edge = torch.rand(5, n, h1, w1, 1, generator=g, device=device) < 0.1
+    below = torch.nextafter(torch.round(c / 8) * 8,
+                            torch.full_like(c, -float("inf")))
+    return table, torch.where(edge, below, c).contiguous()
+
+
+def level_views(lv, coords):
+    """A table level as the one-level entries take it: (Q, hl, wl) maps,
+    (Q, 2) coords at the level's scale."""
+    return klookup._level_maps(lv), klookup._level_coords(coords, lv)
+
+
+def check_lookup_pyramid(n, h1, w1, dtype, seed, timing=True):
+    """The all-level forward kernel (one launch) vs its plain twin, exact;
+    each level's channels vs the one-level entry; returns the phase-3
+    record with the time per iteration, the bound summed over levels and
+    grid_sample summed over levels."""
+    table, coords = pyramid_inputs(n, h1, w1, dtype, seed)
+    got = klookup.lookup_pyramid_cuda(table, coords, RADIUS)
+    torch.cuda.synchronize()
+    want = klookup.corr_lookup_pyramid_plain(table, coords, RADIUS)
+    check(got.dtype == want.dtype == dtype and got.shape == want.shape,
+          f"pyramid lookup output {got.dtype} {tuple(got.shape)}")
+    err = (got.float() - want.float()).abs().max().item()
+    per_level, s = True, 0
+    for lv in table:
+        tl = len(lv.targets)
+        one = klookup.corr_lookup_level(*level_views(lv, coords), RADIUS)
+        mine = got.reshape(n, h1, w1, -1, 81)[..., s:s + tl, :]
+        per_level &= bool(torch.equal(
+            one, mine.permute(3, 0, 1, 2, 4).reshape(-1, 81)))
+        s += tl
+    rec = {"queries": [n, h1, w1], "levels": len(table),
+           "items": sum(lv.vol.shape[:4].numel() for lv in table),
+           "dtype": str(dtype).replace("torch.", ""), "max_abs_err": err,
+           "max_abs_ref": want.float().abs().max().item(),
+           "per_level_equal": per_level, "ok": err == 0.0 and per_level}
+    if not timing:
+        return rec
+    bound_bytes = sum(lookup_bound_bytes(*level_views(lv, coords), RADIUS)
+                      for lv in table)
+    rec.update(
+        ms=time_ms(lambda: klookup.lookup_pyramid_cuda(table, coords,
+                                                       RADIUS)),
+        warm_ms=time_ms(lambda: klookup.lookup_pyramid_cuda(
+            table, coords, RADIUS), cold=False),
+        # where the time goes: level 0 (24,000 items at the flagship)
+        # alone, and levels 1-3 alone
+        level0_ms=time_ms(lambda: klookup.lookup_pyramid_cuda(
+            table[:1], coords, RADIUS)),
+        levels123_ms=time_ms(lambda: klookup.lookup_pyramid_cuda(
+            table[1:], coords, RADIUS)),
+        plain_ms=time_ms(lambda: klookup.corr_lookup_pyramid_plain(
+            table, coords, RADIUS)),
+        bound_bytes=bound_bytes,
+        bound_ms=bound_bytes / HBM_BYTES_PER_S * 1e3)
+    calls, rec["library_dtype"] = [], rec["dtype"]
+    for lv in table:
+        vol, c = level_views(lv, coords)
+        try:
+            call = grid_sample_call(vol, c, RADIUS)
+            call()
+        except RuntimeError as exc:  # a yardstick only: time it in f32
+            rec["library_note"] = f"grid_sample refused {dtype}: {exc}"[:200]
+            rec["library_dtype"] = "float32"
+            call = grid_sample_call(vol.float(), c, RADIUS)
+        calls.append(call)
+    rec["library_ms"] = time_ms(lambda: [call() for call in calls])
+    rec["library_what"] = "F.grid_sample once per level, summed"
+    return rec
+
+
+def check_lookup_pyramid_bwd(n, h1, w1, dtype, seed, iters=ITERS,
+                             timing=True):
+    """The all-level backward kernel: `iters` iterations' cotangents, last
+    iteration first, accumulated into one f32 dVol buffer per level, twice
+    (bitwise equal), against the accumulating plain twin and against the
+    sum of the per-level corr_lookup_level_bwd_plain calls (twin and sum
+    equal exactly); dcoords of every iteration against the twin's. Returns
+    the phase-3b record with the time per iteration, the one zeroing per
+    step, the bound and the grid_sample VJP summed over levels."""
+    table, coords = pyramid_inputs(n, h1, w1, dtype, seed)
+    C = sum(len(lv.targets) for lv in table) * 81
+    gen = torch.Generator(device="cuda").manual_seed(seed + 100)
+    gs = [torch.randn(n, h1, w1, C, generator=gen, device="cuda").to(dtype)
+          for _ in range(iters)]
+
+    def zeros():
+        return [torch.zeros(lv.vol.shape, device="cuda") for lv in table]
+
+    runs = []
+    for _ in range(2):
+        acc = zeros()
+        dcs = [klookup.lookup_pyramid_bwd_cuda(table, coords, g, RADIUS, acc)
+               for g in reversed(gs)]
+        runs.append((acc, dcs))
+    torch.cuda.synchronize()
+    (acc, dcs), (acc2, dcs2) = runs
+    repeat = all(torch.equal(a, b) for a, b in zip(acc + dcs, acc2 + dcs2))
+    twin = zeros()
+    dcs_p = [klookup.corr_lookup_pyramid_bwd_plain(table, coords, g, RADIUS,
+                                                   twin)
+             for g in reversed(gs)]
+    # the twin is the per-level VJPs, rounded to the volume's type and
+    # summed in f32 in backward order
+    twin_is_sum, off = True, 0
+    for i, lv in enumerate(table):
+        tl = len(lv.targets)
+        vol, c = level_views(lv, coords)
+        total = torch.zeros(lv.vol.shape, device="cuda")
+        for g in reversed(gs):
+            gl = g[..., off:off + tl * 81].reshape(n, h1, w1, tl, 81)
+            dv, _ = klookup.corr_lookup_level_bwd_plain(
+                vol, c, gl.permute(3, 0, 1, 2, 4).reshape(-1, 81), RADIUS)
+            total += dv.reshape(lv.vol.shape).float()
+        twin_is_sum &= bool(torch.equal(total, twin[i]))
+        off += tl * 81
+    tol_v, tol_c = BWD_TOL[dtype]
+    err_v = max((a - b).abs().max().item() for a, b in zip(acc, twin))
+    ref_v = max(b.abs().max().item() for b in twin)
+    err_c = max((a - b).abs().max().item() for a, b in zip(dcs, dcs_p))
+    ref_c = max(b.abs().max().item() for b in dcs_p)
+    rec = {"queries": [n, h1, w1], "iters": iters,
            "dtype": str(dtype).replace("torch.", ""),
            "dvol_max_abs_err": err_v, "dvol_max_abs_ref": ref_v,
            "dcoords_max_abs_err": err_c, "dcoords_max_abs_ref": ref_c,
            "tol_rel": [tol_v, tol_c], "bitwise_repeatable": repeat,
+           "twin_equals_sum_of_level_vjps": twin_is_sum,
            "ok": (err_v <= tol_v * ref_v and err_c <= tol_c * ref_c
-                  and repeat)}
+                  and repeat and twin_is_sum)}
     if not timing:
         return rec
-    bound_bytes = lookup_bwd_bound_bytes(vol, coords, RADIUS)
+    bound_bytes = sum(lookup_bwd_bound_bytes(*level_views(lv, coords),
+                                             RADIUS) for lv in table)
+    g0 = gs[0]
     rec.update(
-        ms=time_ms(lambda: klookup.lookup_bwd_into(vol, coords, g, RADIUS,
-                                                   dv, dc)),
-        zero_ms=time_ms(lambda: dv.zero_()),
-        plain_ms=time_ms(lambda: klookup.corr_lookup_level_bwd_plain(
-            vol, coords, g, RADIUS)),
+        ms=time_ms(lambda: klookup.lookup_pyramid_bwd_cuda(
+            table, coords, g0, RADIUS, acc)),
+        # where the time goes: dVol alone, dcoords alone
+        dvol_only_ms=time_ms(lambda: klookup.lookup_pyramid_bwd_cuda(
+            table, coords, g0, RADIUS, acc, False)),
+        dcoords_only_ms=time_ms(lambda: klookup.lookup_pyramid_bwd_cuda(
+            table, coords, g0, RADIUS, None)),
+        zero_ms_per_step=time_ms(zeros),
+        plain_ms=time_ms(lambda: klookup.corr_lookup_pyramid_bwd_plain(
+            table, coords, g0, RADIUS, twin), reps=5),
         bound_bytes=bound_bytes,
-        bound_ms=bound_bytes / HBM_BYTES_PER_S * 1e3,
-    )
-    try:
-        lib = grid_sample_vjp_call(vol, coords, g, RADIUS)
-        lib()
-        rec["library_dtype"] = rec["dtype"]
-    except RuntimeError as exc:  # a yardstick only: time it in f32
-        rec["library_note"] = f"grid_sample VJP refused {dtype}: {exc}"[:200]
-        lib = grid_sample_vjp_call(vol.float(), coords, g.float(), RADIUS)
-        rec["library_dtype"] = "float32"
-    rec["library_ms"] = time_ms(lib)
+        bound_ms=bound_bytes / HBM_BYTES_PER_S * 1e3)
+    calls, rec["library_dtype"], off = [], rec["dtype"], 0
+    for lv in table:
+        tl = len(lv.targets)
+        vol, c = level_views(lv, coords)
+        gl = g0[..., off:off + tl * 81].reshape(n, h1, w1, tl, 81).permute(
+            3, 0, 1, 2, 4).reshape(-1, 81)
+        off += tl * 81
+        try:
+            call = grid_sample_vjp_call(vol, c, gl, RADIUS)
+            call()
+        except RuntimeError as exc:  # a yardstick only: time it in f32
+            rec["library_note"] = (f"grid_sample VJP refused {dtype}: "
+                                   f"{exc}")[:200]
+            rec["library_dtype"] = "float32"
+            call = grid_sample_vjp_call(vol.float(), c, gl.float(), RADIUS)
+        calls.append(call)
+    rec["library_ms"] = time_ms(lambda: [call() for call in calls])
+    rec["library_what"] = ("the grid_sample VJP once per level, summed "
+                           "(each zero-fills its own input gradient)")
     return rec
 
 
@@ -363,14 +524,15 @@ def damped_pair(cfg, seed):
     return kern, plain
 
 
-def profile_run(fn, unprofiled_ms: float, out_dir: str, name: str,
+def profile_run(fn, unprofiled_ms: float, out_dir, name: str,
                 vol_shapes=()):
     """torch.profiler over one fn() (after one unprofiled warm call):
-    device kernel time by name, the chrome trace written into out_dir.
+    device kernel time by name, the chrome trace written into out_dir
+    (when it is given).
     The idle share is 1 - summed kernel time over the unprofiled time.
-    With vol_shapes (the (Q, hl, wl) lookup volumes), also the device time
-    of the fills (zeroing the dVol buffers) and of the adds (autograd
-    summing the per-iteration dVols) on tensors of those shapes."""
+    With vol_shapes (the lookup volumes' shapes), also the device time
+    and count of the fills (zeroing the dVol buffers) and of the adds
+    (autograd summing per-iteration dVols) on tensors of those shapes."""
     from pathlib import Path
 
     from torch.profiler import ProfilerActivity, profile
@@ -383,9 +545,10 @@ def profile_run(fn, unprofiled_ms: float, out_dir: str, name: str,
         fn()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
-    out = Path(out_dir)
-    out.mkdir(parents=True, exist_ok=True)
-    prof.export_chrome_trace(str(out / f"{name}_trace.json"))
+    if out_dir:
+        out = Path(out_dir)
+        out.mkdir(parents=True, exist_ok=True)
+        prof.export_chrome_trace(str(out / f"{name}_trace.json"))
     # device kernels only (the aten ops above them carry the same time)
     rows = []
     for evt in prof.key_averages():
@@ -402,7 +565,8 @@ def profile_run(fn, unprofiled_ms: float, out_dir: str, name: str,
         return {"device_ms": sum(r[0] for r in sel) / 1e3,
                 "calls": sum(r[2] for r in sel)}
 
-    by_op = {}
+    by_op = {"dvol_zero": {"device_ms": 0.0, "calls": 0},
+             "dvol_sum": {"device_ms": 0.0, "calls": 0}} if vol_shapes else {}
     if vol_shapes:
         want = [list(v) for v in vol_shapes]
         for evt in prof.key_averages(group_by_input_shape=True):
@@ -412,7 +576,7 @@ def profile_run(fn, unprofiled_ms: float, out_dir: str, name: str,
             if kind and list(shapes[0]) in want:
                 dev_us = getattr(evt, "device_time_total",
                                  getattr(evt, "cuda_time_total", 0.0))
-                rec = by_op.setdefault(kind, {"device_ms": 0.0, "calls": 0})
+                rec = by_op[kind]
                 rec["device_ms"] += dev_us / 1e3
                 rec["calls"] += evt.count
     return {"profiled_wall_ms": wall_ms, "kernel_ms": kernel_ms, **by_op,
@@ -461,19 +625,15 @@ def train_batch(seed: int, device="cuda"):
 
 
 def build_corr_pyramid_shapes(cfg):
-    """The lookup volumes of the train batch, per level, in both views:
-    (Q, hl, wl) as the lookup takes them (the dVol buffers are zeroed in
-    this shape) and (Tl, N, h1, w1, hl, wl) as the pyramid holds them
-    (autograd sums the 12 iterations' dVols in this one)."""
+    """The lookup volumes of the train batch, per level, as the pyramid
+    holds them (Tl, N, h1, w1, hl, wl): the dVol accumulators are zeroed,
+    and autograd would sum per-iteration dVols, in this shape."""
     from bflow_tpu_torch.models.corr import level_target_indices
 
     h, w = TRAIN_H // 8, TRAIN_W // 8
-    shapes = []
-    for lvl, idx in enumerate(level_target_indices(cfg.levels_per_target)):
-        hl, wl = h >> lvl, w >> lvl
-        shapes.append((len(idx) * TRAIN_B * h * w, hl, wl))
-        shapes.append((len(idx), TRAIN_B, h, w, hl, wl))
-    return shapes
+    return [(len(idx), TRAIN_B, h, w, h >> lvl, w >> lvl)
+            for lvl, idx in enumerate(
+                level_target_indices(cfg.levels_per_target))]
 
 
 def grads_finite(model) -> bool:
@@ -635,11 +795,15 @@ def expected_launches(cfg, n=1, h=H, w=W, iters=ITERS):
         if row["kernel"]:
             want[row["kernel"]] += row["per_forward"]
     q8 = cfg.lookup_method == "pallas_q8"
+    table = False  # a level for the all-level kernel: one launch per iter.
     for lvl in range(max(cfg.levels_per_target)):
         onehot = 0 <= cfg.onehot_from_level <= lvl
         if cfg.lookup_method in KERNEL_METHODS and not onehot:
-            q8_here = q8 and quantizes((h // 8) >> lvl)
-            want[klookup.Q8_NAME if q8_here else klookup.NAME] += iters
+            if q8 and quantizes((h // 8) >> lvl):
+                want[klookup.Q8_NAME] += iters
+            else:
+                table = True
+    want[klookup.NAME] += iters * table
     return want
 
 
@@ -792,12 +956,17 @@ class plain_twins:
 
         self._saved = [(kconv, "_fwd_cuda", kconv._fwd_cuda),
                        (kstem, "_fwd_cuda", kstem._fwd_cuda),
-                       (mcorr, "corr_lookup_level", mcorr.corr_lookup_level),
+                       (klookup, "lookup_pyramid_cuda",
+                        klookup.lookup_pyramid_cuda),
+                       (klookup, "lookup_pyramid_bwd_cuda",
+                        klookup.lookup_pyramid_bwd_cuda),
                        (mcorr, "corr_lookup_level_q8",
                         mcorr.corr_lookup_level_q8)]
         kconv._fwd_cuda = conv_common.conv_plain
         kstem._fwd_cuda = conv_common.conv_plain
-        mcorr.corr_lookup_level = klookup.corr_lookup_level_plain
+        klookup.lookup_pyramid_cuda = klookup.corr_lookup_pyramid_plain
+        klookup.lookup_pyramid_bwd_cuda = (
+            klookup.corr_lookup_pyramid_bwd_plain)
         mcorr.corr_lookup_level_q8 = klookup.corr_lookup_level_q8_plain
         return self
 
@@ -863,8 +1032,8 @@ def main() -> int:
                          "conv kernels on every flagship conv shape "
                          "(phase conv_sweep), and stop")
     ap.add_argument("--profile", metavar="DIR",
-                    help="profile one forward and one train step, write "
-                         "their traces into DIR")
+                    help="write the chrome traces of the profiled forward "
+                         "and train step into DIR")
     args = ap.parse_args()
 
     # 1. device
@@ -900,22 +1069,36 @@ def main() -> int:
             "count": torch.cuda.device_count()}}), flush=True)
         return 0
 
-    # 3. each kernel vs its plain version at the flagship level shapes
-    per_level, per_level_bwd = [], []
+    # 3. the all-level lookup forward (one launch per iteration) vs its
+    # plain twin at the flagship shapes, exact; the one-level entry at
+    # each level shape
+    per_pyr = []
     for dtype in (torch.float32, torch.bfloat16):
+        rec = check_lookup_pyramid(1, H1, W1, dtype, args.seed)
+        emit("kernel", name=klookup.NAME, **rec)
+        check(rec["ok"], f"all-level lookup kernel disagrees: {rec}")
+        per_pyr.append(rec)
         for lvl, (Tl, hl, wl) in enumerate(LEVELS):
             rec = check_lookup_level(Tl, hl, wl, dtype, args.seed + lvl)
-            rec["level"] = lvl
-            emit("kernel", name=klookup.NAME, **rec)
-            check(rec["ok"], f"lookup kernel disagrees: {rec}")
-            per_level.append(rec)
+            emit("kernel_one_level", name=klookup.NAME, level=lvl, **rec)
+            check(rec["ok"], f"one-level lookup disagrees: {rec}")
+    # 3b. the backward: 12 iterations accumulated into one dVol buffer per
+    # level, at the flagship shapes (bf16) and the DSEC training shapes
+    # (f32, B=3 at 288x384); the one-level entry at each flagship level
+    per_pyr_bwd = {}
+    for name, (n, h1, w1), dtype in (
+            ("flagship", (1, H1, W1), torch.bfloat16),
+            ("train", (TRAIN_B, TRAIN_H // 8, TRAIN_W // 8), torch.float32)):
+        rec = check_lookup_pyramid_bwd(n, h1, w1, dtype, args.seed)
+        emit("kernel", name=klookup.BWD_NAME, shapes=name, **rec)
+        check(rec["ok"], f"all-level lookup backward disagrees: {rec}")
+        per_pyr_bwd[name] = rec
     for dtype in (torch.float32, torch.bfloat16):
         for lvl, (Tl, hl, wl) in enumerate(LEVELS):
             rec = check_lookup_bwd_level(Tl, hl, wl, dtype, args.seed + lvl)
-            rec["level"] = lvl
-            emit("kernel", name=klookup.BWD_NAME, **rec)
-            check(rec["ok"], f"lookup backward kernel disagrees: {rec}")
-            per_level_bwd.append(rec)
+            emit("kernel_one_level", name=klookup.BWD_NAME, level=lvl,
+                 **rec)
+            check(rec["ok"], f"one-level lookup backward disagrees: {rec}")
 
     # 3c. the opt-in kernels at every flagship shape they take
     opt_cfg = opt_in_config()
@@ -926,7 +1109,8 @@ def main() -> int:
         rec = check_q8_level(Tl, hl, wl, args.seed + lvl)
         rec["level"] = lvl
         emit("kernel", name=klookup.Q8_NAME, **rec)
-        check(rec["ok"], f"int8 lookup kernel disagrees: {rec}")
+        check(rec["ok"] and rec["max_abs_err"] == 0.0,
+              f"int8 lookup kernel disagrees with its twin: {rec}")
         per_q8.append(rec)
     per_conv = {kconv.NAME: [], kstem.NAME: []}
     for i, row in enumerate(flagship_convs(opt_cfg)):
@@ -966,15 +1150,16 @@ def main() -> int:
     check(tuple(flow.shape) == (1, H, W, 2), f"flow shape {flow.shape}")
     check(bool(torch.isfinite(up.params).all())
           and bool(torch.isfinite(low.params).all()), "non-finite output")
-    want = len(LEVELS) * ITERS
-    check(per_fwd[klookup.NAME] == want,
-          f"{klookup.NAME}: {per_fwd[klookup.NAME]} launches per forward, "
-          f"want {want}")
-    check(per_fwd[klookup.BWD_NAME] == 0, "backward kernel in inference")
-    if args.profile:
-        emit("profile", path="forward", **profile_run(
-            lambda: run_forward(model, voxel, images), ms, args.profile,
-            "forward"))
+    want = expected_launches(cfg)
+    check(per_fwd == want,
+          f"launches per forward {per_fwd}, derived {want} (one all-level "
+          f"lookup launch per iteration)")
+    # device calls per forward, direct_copy among them
+    prof = profile_run(lambda: run_forward(model, voxel, images), ms,
+                       args.profile, "forward")
+    emit("profile", path="forward", **prof)
+    check(prof["lookup_fwd"]["calls"] == ITERS,
+          f"profiled forward: {prof['lookup_fwd']} lookup launches")
     default_model = model
 
     # 4b. the opt-in flagship forward: q8 lookup, stem and conv kernels
@@ -1035,10 +1220,9 @@ def main() -> int:
          opt_in_over_default=turn_ms["opt_in"] / turn_ms["default"],
          phase_medians_ms={"default": ms, "opt_in": opt_ms})
     del default_model
-    if args.profile:
-        emit("profile", path="opt_forward", **profile_run(
-            lambda: run_forward(model, voxel, images), opt_ms, args.profile,
-            "opt_forward"))
+    emit("profile", path="opt_forward", **profile_run(
+        lambda: run_forward(model, voxel, images), opt_ms, args.profile,
+        "opt_forward"))
     del model
 
     # 5. kernel path vs plain path on the card
@@ -1116,18 +1300,23 @@ def main() -> int:
          launches=train_counts, launches_per_step=per_step, losses=losses,
          lr=state.optimizer.param_groups[0]["lr"], grads_finite=finite,
          cnet_running_stats_moved=moved)
-    want = len(LEVELS) * tcfg.iters_train
+    want = tcfg.iters_train  # one all-level launch per iteration each way
     for name in (klookup.NAME, klookup.BWD_NAME):
         check(per_step[name] == want,
               f"{name}: {per_step[name]} launches per step, want {want}")
     check(all(np.isfinite(losses)) and finite, f"non-finite: {losses}")
     check(losses[-1] < losses[0], f"loss did not fall: {losses}")
     check(moved > 0, "cnet BatchNorm statistics did not move")
-    if args.profile:
-        levels = build_corr_pyramid_shapes(tcfg)
-        emit("profile", path="train_step", **profile_run(
-            lambda: step(batch), train_ms, args.profile, "train_step",
-            vol_shapes=levels))
+    # dVol per step: one zeroing per level (the accumulators), no sum of
+    # per-iteration dVols
+    levels = build_corr_pyramid_shapes(tcfg)
+    prof = profile_run(lambda: step(batch), train_ms, args.profile,
+                       "train_step", vol_shapes=levels)
+    emit("profile", path="train_step", **prof)
+    check(prof["dvol_zero"]["calls"] == len(levels)
+          and prof["dvol_sum"]["calls"] == 0,
+          f"train step dVol: {prof['dvol_zero']} zeroings, "
+          f"{prof['dvol_sum']} sums; want {len(levels)} and 0")
     del model, state, step
 
     # 6b. one bf16 flagship step
@@ -1206,12 +1395,16 @@ def main() -> int:
         check(loss_rel <= loss_bound and grad_worst <= bound,
               f"train parity {precision}: {loss_rel} {grad_worst}")
 
-    # 8. kernels line: the lookups one launch per level, so their cost
-    # per iteration is the sum over the level records (bf16 for the
-    # lookup forward and backward); the convs per forward, the sum over
-    # their shapes of time x launches per forward
-    def bf16_sum(recs, key):
-        return sum(r[key] for r in recs if r["dtype"] == "bfloat16")
+    # 8. kernels line: the lookups per iteration at the flagship shapes
+    # (bf16; the backward also at the training shapes, f32), one launch
+    # for every level; the convs per forward, the sum over their shapes of
+    # time x launches per forward
+    fwd = next(r for r in per_pyr if r["dtype"] == "bfloat16")
+    bwd = per_pyr_bwd["flagship"]
+
+    def bwd_fields(r):
+        return {k: r[k] for k in ("ms", "zero_ms_per_step", "plain_ms",
+                                  "bound_ms", "library_ms")}
 
     summary = [{
         "name": klookup.NAME,
@@ -1220,12 +1413,13 @@ def main() -> int:
         "replaces": "bflow_tpu/ops/pallas/corr_lookup_v3.py:238",
         "launches": counts[klookup.NAME],
         "launches_train": train_counts[klookup.NAME],
-        "max_abs_err": max(r["max_abs_err"] for r in per_level),
-        "ms": bf16_sum(per_level, "ms"),
-        "plain_ms": bf16_sum(per_level, "plain_ms"),
-        "bound_ms": bf16_sum(per_level, "bound_ms"),
+        "max_abs_err": max(r["max_abs_err"] for r in per_pyr),
+        "ms": fwd["ms"],
+        "plain_ms": fwd["plain_ms"],
+        "bound_ms": fwd["bound_ms"],
         "bound_by": "bytes",
-        "library_ms": bf16_sum(per_level, "library_ms"),
+        "library_ms": fwd["library_ms"],
+        "per": "iteration, all four levels, flagship bf16",
     }, {
         "name": klookup.BWD_NAME,
         "route": "cuda",
@@ -1234,13 +1428,11 @@ def main() -> int:
         "launches": train_counts[klookup.BWD_NAME],
         "max_abs_err": max(max(r["dvol_max_abs_err"],
                                r["dcoords_max_abs_err"])
-                           for r in per_level_bwd),
-        "ms": bf16_sum(per_level_bwd, "ms"),
-        "zero_ms": bf16_sum(per_level_bwd, "zero_ms"),
-        "plain_ms": bf16_sum(per_level_bwd, "plain_ms"),
-        "bound_ms": bf16_sum(per_level_bwd, "bound_ms"),
+                           for r in per_pyr_bwd.values()),
+        **bwd_fields(bwd),
         "bound_by": "bytes",
-        "library_ms": bf16_sum(per_level_bwd, "library_ms"),
+        "per": "iteration, all four levels, flagship bf16",
+        "train_f32": bwd_fields(per_pyr_bwd["train"]),
     }, {
         "name": klookup.Q8_NAME,
         "route": "cuda",

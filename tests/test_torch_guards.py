@@ -1,9 +1,11 @@
 """Guards of the port: it imports no JAX and nothing of bflow_tpu, its
 entry points refuse to fall back to the CPU, its weights bridge round-trips
 through the JAX package's importer, and (on a GPU only) its CUDA kernels
-match their plain versions at the flagship shapes, the conv kernels in
-every tile variant, and an encoder under the conv kernels stays
-channels-last between convs.
+match their plain versions at the flagship shapes (the all-level lookup
+forward and accumulating backward too), the conv kernels in every tile
+variant, an encoder under the conv kernels stays channels-last between
+convs, the sink hands the kernels' dVol to autograd, and a model launches
+one all-level lookup per iteration each way.
 
 JAX is imported inside the tests that use it, so that the GPU tests run on
 a machine without JAX:
@@ -191,8 +193,7 @@ def test_lookup_kernel_matches_plain_on_gpu(cuda_device, dtype, level):
 
     Tl, hl, wl = chip_smoke.LEVELS[level]
     before = corr_lookup.launches
-    rec = chip_smoke.check_lookup_level(Tl, hl, wl, dtype, seed=level,
-                                        timing=False)
+    rec = chip_smoke.check_lookup_level(Tl, hl, wl, dtype, seed=level)
     assert corr_lookup.launches == before + 1
     assert rec["ok"], rec
 
@@ -209,8 +210,7 @@ def test_lookup_bwd_kernel_matches_plain_on_gpu(cuda_device, dtype, level):
 
     Tl, hl, wl = chip_smoke.LEVELS[level]
     before = corr_lookup.bwd_launches
-    rec = chip_smoke.check_lookup_bwd_level(Tl, hl, wl, dtype, seed=level,
-                                            timing=False)
+    rec = chip_smoke.check_lookup_bwd_level(Tl, hl, wl, dtype, seed=level)
     assert corr_lookup.bwd_launches == before + 2
     assert rec["ok"], rec
 
@@ -243,6 +243,125 @@ def test_lookup_kernel_gradients_on_gpu(cuda_device, vol_grad):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_lookup_pyramid_kernel_matches_plain_on_gpu(cuda_device, dtype):
+    """The all-level forward kernel, one launch for the flagship's four
+    levels, equals its plain twin exactly, and each level's channels
+    equal the one-level entry (chip_smoke phase 3)."""
+    import chip_smoke
+
+    from bflow_tpu_torch.kernels import corr_lookup
+
+    before = corr_lookup.launches
+    rec = chip_smoke.check_lookup_pyramid(1, chip_smoke.H1, chip_smoke.W1,
+                                          dtype, seed=0, timing=False)
+    assert corr_lookup.launches == before + 1 + len(chip_smoke.LEVELS)
+    assert rec["ok"] and rec["max_abs_err"] == 0.0, rec
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shapes", ["flagship", "train"])
+def test_lookup_pyramid_bwd_accumulates_on_gpu(cuda_device, shapes):
+    """The all-level backward kernel: 12 iterations into one f32 dVol
+    buffer per level, twice, bitwise equal, within BWD_TOL of the
+    accumulating twin (chip_smoke phase 3b): flagship bf16, training
+    f32."""
+    import chip_smoke
+
+    from bflow_tpu_torch.kernels import corr_lookup
+
+    n, h1, w1, dtype = ((1, chip_smoke.H1, chip_smoke.W1, torch.bfloat16)
+                        if shapes == "flagship" else
+                        (chip_smoke.TRAIN_B, chip_smoke.TRAIN_H // 8,
+                         chip_smoke.TRAIN_W // 8, torch.float32))
+    before = corr_lookup.bwd_launches
+    rec = chip_smoke.check_lookup_pyramid_bwd(n, h1, w1, dtype, seed=1,
+                                              timing=False)
+    assert corr_lookup.bwd_launches == before + 2 * chip_smoke.ITERS
+    assert rec["ok"] and rec["bitwise_repeatable"], rec
+
+
+@pytest.mark.cuda
+def test_sink_gradients_on_gpu(cuda_device):
+    """Three lookups of one pyramid through the kernels and the sink:
+    the features' and coords' gradients against the same graph through
+    the plain twins on the card; a retained graph gives the same
+    gradients twice; a coords-only gradient leaves no accumulator."""
+    import chip_smoke
+
+    from bflow_tpu_torch.kernels import corr_lookup
+    from bflow_tpu_torch.models import corr as tcorr
+
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    ref = torch.randn(5, 1, 16, 24, 32, generator=gen, device="cuda")
+    tgt = torch.randn(5, 1, 16, 24, 32, generator=gen, device="cuda")
+    base = 20 * torch.rand(5, 1, 16, 24, 2, generator=gen, device="cuda")
+    ws = [torch.randn(1, 16, 24, 11 * 81, generator=gen, device="cuda")
+          for _ in range(3)]
+
+    def graph():
+        leaves = [t.clone().requires_grad_(True) for t in (ref, tgt, base)]
+        pyr = tcorr.build_corr_pyramid(leaves[0], leaves[1],
+                                       (1, 1, 1, 4, 4))
+        loss = sum((tcorr.corr_lookup(pyr, leaves[2] * (1 + 0.1 * i), 4,
+                                      "pallas") * w).sum()
+                   for i, w in enumerate(ws))
+        return loss, leaves, pyr
+
+    before = (corr_lookup.launches, corr_lookup.bwd_launches)
+    loss, leaves, pyr = graph()
+    (dc,) = torch.autograd.grad(loss, leaves[2], retain_graph=True)
+    assert pyr.sink._acc._bufs is None
+    got = torch.autograd.grad(loss, leaves, retain_graph=True)
+    again = torch.autograd.grad(loss, leaves)
+    assert (corr_lookup.launches, corr_lookup.bwd_launches) == (
+        before[0] + 3, before[1] + 9)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+    assert torch.equal(dc, got[2])
+    with chip_smoke.plain_twins():
+        loss_p, leaves_p, _ = graph()
+        want = torch.autograd.grad(loss_p, leaves_p)
+    for g, w, tol in zip(got, want, (1e-5, 1e-5, 1e-4)):
+        assert (g - w).abs().max() <= tol * w.abs().max()
+
+
+@pytest.mark.cuda
+def test_model_launch_counts_on_gpu(cuda_device):
+    """One all-level lookup launch per iteration: a flagship-config
+    forward (default and opt-in modes) and a train-mode forward and
+    backward, at 64x96 and 2 iterations, launch what expected_launches
+    derives."""
+    import dataclasses
+
+    import chip_smoke
+
+    from bflow_tpu_torch import kernels
+    from bflow_tpu_torch.kernels import corr_lookup
+
+    rng = np.random.default_rng(0)
+    cfg = bt.flagship_config()
+    voxel = torch.from_numpy(rng.standard_normal(
+        (1, 64, 96, cfg.nbins_total)).astype(np.float32)).to(cuda_device)
+    images = torch.from_numpy(rng.integers(0, 255, (2, 1, 64, 96, 3)).astype(
+        np.float32)).to(cuda_device)
+    for c in (cfg, chip_smoke.opt_in_config()):
+        model = bt.build_model(c, device="cuda")
+        kernels.reset_launch_counts()
+        model(voxel, images, iters=2, test_mode=True)
+        torch.cuda.synchronize()
+        assert kernels.launch_counts() == chip_smoke.expected_launches(
+            c, 1, 64, 96, 2)
+    model = bt.build_model(dataclasses.replace(cfg, iters_train=2),
+                           device="cuda").train()
+    kernels.reset_launch_counts()
+    preds = model(voxel, images, test_mode=False)
+    sum(p.params.float().sum() for p in preds).backward()
+    torch.cuda.synchronize()
+    counts = kernels.launch_counts()
+    assert counts[corr_lookup.NAME] == counts[corr_lookup.BWD_NAME] == 2
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("level", range(2))
 def test_q8_lookup_kernel_matches_plain_on_gpu(cuda_device, level):
     """The int8 lookup kernel against its twin at the two flagship levels
@@ -255,7 +374,7 @@ def test_q8_lookup_kernel_matches_plain_on_gpu(cuda_device, level):
     before = corr_lookup.q8_launches
     rec = chip_smoke.check_q8_level(Tl, hl, wl, seed=level, timing=False)
     assert corr_lookup.q8_launches == before + 1
-    assert rec["ok"], rec
+    assert rec["ok"] and rec["max_abs_err"] == 0.0, rec
 
 
 @pytest.mark.cuda
