@@ -30,11 +30,13 @@
 // stores, no atomics, bitwise repeatable.
 //
 // What bounds it on this card: a gather, a few flops per byte. Per
-// (query, level, target) it reads 81 cotangents, 8 bytes of coords, the
-// in-map part of its (2r+2)^2 patch from vol, and reads and writes that
-// patch of the f32 accumulator; per (query, target) it writes 8 bytes of
-// dcoords: bytes ~ sum over levels of Q * (81 itemsize + (2r+2)^2
-// (itemsize + 8) + 16).
+// (query, level, target) it reads 81 cotangents and the in-map part of its
+// (2r+2)^2 patch from vol, and reads and writes that patch of the f32
+// accumulator; per (query, target) it reads 8 bytes of base coords and
+// writes 8 of dcoords, once whatever the number of its levels: bytes ~ sum
+// over levels of Q * (81 itemsize + (2r+2)^2 (itemsize + 8)) + 16 T M. The
+// probe variants (corr_lookup_table.cuh: Probe) take the patch, the
+// accumulator's read or the cotangents out to see where the time goes.
 //
 // Design: one block per query position m, one warp per slot (level,
 // target) of the table, so every item of the query runs at once; the
@@ -101,7 +103,7 @@ constexpr size_t smem_bytes(int slots) {
   return (size_t)slots * (sizeof(WarpScratch<R>) + 2 * sizeof(float));
 }
 
-template <typename T, int R>
+template <typename T, int R, int kProbe>
 __global__ void __launch_bounds__(kMaxSlots * 32)
 corr_lookup_bwd_kernel(const __grid_constant__ LookupTable tab,
                        const float* __restrict__ coords,
@@ -132,12 +134,16 @@ corr_lookup_bwd_kernel(const __grid_constant__ LookupTable tab,
   float* dm = L.dvol == nullptr ? nullptr : L.dvol + map_off;
 
   // 1. every load of this slot in flight at once
-  if (need_dc) stage_patch<R>(p, map, L.hl, L.wl, w.patch, lane);
+  if (need_dc)
+    stage_patch<R, !(kProbe & kProbeNoPatch)>(p, map, L.hl, L.wl, w.patch,
+                                               lane);
   const T* gq = g + m * tab.ld + (long long)s * kTaps;
   float gv[kTapRounds];
 #pragma unroll
   for (int k = 0; k < kTapRounds; ++k)
-    gv[k] = lane + 32 * k < kTaps ? load_f32(gq + lane + 32 * k) : 0.f;
+    gv[k] = lane + 32 * k >= kTaps              ? 0.f
+            : (kProbe & kProbeNoCotangent) ? L.scale
+                                           : load_f32(gq + lane + 32 * k);
   float av[kCellRounds];
   int aidx[kCellRounds];  // the cell's offset in the map, -1: not in it
 #pragma unroll
@@ -150,7 +156,7 @@ corr_lookup_bwd_kernel(const __grid_constant__ LookupTable tab,
     if (dm != nullptr && p.live && cc < kCells && row >= 0 && row < L.hl &&
         col >= 0 && col < L.wl) {
       aidx[k] = row * L.wl + col;
-      av[k] = dm[aidx[k]];
+      av[k] = (kProbe & kProbeNoAccRead) ? 0.f : dm[aidx[k]];
     }
   }
   make_axes<R>(p, w.axes, lane);
@@ -223,30 +229,33 @@ corr_lookup_bwd_kernel(const __grid_constant__ LookupTable tab,
   }
 }
 
-template <typename T, int R>
+template <typename T, int R, int kProbe = 0>
 int launch_r(const LookupTable* tab, const void* coords, const void* g,
              void* dcoords, void* stream) {
   if (tab->queries == 0) return (int)cudaSuccess;
   const size_t smem = smem_bytes<R>(tab->n_slots);
   if (smem > 48 * 1024) {
     const cudaError_t err = cudaFuncSetAttribute(
-        corr_lookup_bwd_kernel<T, R>,
+        corr_lookup_bwd_kernel<T, R, kProbe>,
         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (err != cudaSuccess) return (int)err;
   }
-  corr_lookup_bwd_kernel<T, R><<<(unsigned)tab->queries,
-                                 32 * tab->n_slots, smem,
-                                 (cudaStream_t)stream>>>(
+  corr_lookup_bwd_kernel<T, R, kProbe><<<(unsigned)tab->queries,
+                                         32 * tab->n_slots, smem,
+                                         (cudaStream_t)stream>>>(
       *tab, (const float*)coords, (const T*)g, (float*)dcoords);
   return (int)cudaGetLastError();
+}
+
+bool valid(const LookupTable* tab) {
+  return tab->n_slots >= 1 && tab->n_slots <= kMaxSlots &&
+         tab->queries <= 0x7fffffffLL;
 }
 
 template <typename T>
 int launch(const LookupTable* tab, const void* coords, const void* g,
            void* dcoords, void* stream) {
-  if (tab->n_slots < 1 || tab->n_slots > kMaxSlots ||
-      tab->queries > 0x7fffffffLL)
-    return (int)cudaErrorInvalidValue;
+  if (!valid(tab)) return (int)cudaErrorInvalidValue;
   switch (tab->radius) {  // one instantiation per radius: unrolled loops
     case 1: return launch_r<T, 1>(tab, coords, g, dcoords, stream);
     case 2: return launch_r<T, 2>(tab, coords, g, dcoords, stream);
@@ -276,6 +285,29 @@ int corr_lookup_bwd_f32(const LookupTable* tab, const void* coords,
 int corr_lookup_bwd_bf16(const LookupTable* tab, const void* coords,
                          const void* g, void* dcoords, void* stream) {
   return launch<__nv_bfloat16>(tab, coords, g, dcoords, stream);
+}
+
+// The probe variants of the bf16 kernel at r = 4 (the flagship's), for
+// measurement only: probe is 0, one of kProbeNoPatch, kProbeNoAccRead,
+// kProbeNoCotangent, or all three.
+int corr_lookup_bwd_probe_bf16(const LookupTable* tab, const void* coords,
+                               const void* g, void* dcoords, int probe,
+                               void* stream) {
+  using T = __nv_bfloat16;
+  constexpr int kAll = kProbeNoPatch | kProbeNoAccRead | kProbeNoCotangent;
+  if (!valid(tab) || tab->radius != 4) return (int)cudaErrorInvalidValue;
+  switch (probe) {
+    case 0: return launch_r<T, 4, 0>(tab, coords, g, dcoords, stream);
+    case kProbeNoPatch:
+      return launch_r<T, 4, kProbeNoPatch>(tab, coords, g, dcoords, stream);
+    case kProbeNoAccRead:
+      return launch_r<T, 4, kProbeNoAccRead>(tab, coords, g, dcoords, stream);
+    case kProbeNoCotangent:
+      return launch_r<T, 4, kProbeNoCotangent>(tab, coords, g, dcoords,
+                                               stream);
+    case kAll: return launch_r<T, 4, kAll>(tab, coords, g, dcoords, stream);
+    default: return (int)cudaErrorInvalidValue;
+  }
 }
 
 }  // extern "C"

@@ -13,13 +13,16 @@
 //
 // What bounds it on this card: it is a gather. Per (query, level, target)
 // it needs at most the (2r+2)^2 patch around floor(x, y) (fewer bytes where
-// the patch leaves the map), 8 bytes of coordinates, and it writes
-// (2r+1)^2 outputs: bytes ~ sum over levels of Q * ((2r+2)^2 + (2r+1)^2) *
-// itemsize, against a few flops per tap. So it is bound by memory traffic,
-// and by the latency of the dependent loads (coords, then patch): 52,800
-// (query, level, target) items per iteration at the flagship shapes, each
-// patch rows of 20-22 bytes at 160-byte strides, which the memory system
-// moves in 32- to 64-byte pieces.
+// the patch leaves the map) and writes (2r+1)^2 outputs; per (query,
+// target) it reads 8 bytes of base coordinates once, whatever the number
+// of its levels: bytes ~ sum over levels of Q * ((2r+2)^2 + (2r+1)^2) *
+// itemsize + 8 T M, against a few flops per tap. So its bound is memory
+// traffic; what holds it back is the latency of the dependent loads
+// (coords, then patch) and the instructions per tap: 52,800 (query, level,
+// target) items per iteration at the flagship shapes, each patch rows of
+// 20-22 bytes at 160-byte strides, which the memory system moves in 32- to
+// 64-byte pieces. The probe variants (corr_lookup_table.cuh: Probe) take
+// the patch loads or the stores out to measure that.
 //
 // Design: one warp per item, items ordered (query position, slot), so
 // neighbouring warps write neighbouring channel blocks of one output row
@@ -45,7 +48,7 @@ using namespace corr_table;
 
 constexpr int kWarps = 8;  // warps per block, one (query, slot) item each
 
-template <typename T, int R>
+template <typename T, int R, int kProbe>
 __global__ void __launch_bounds__(kWarps * 32)
 corr_lookup_fwd_kernel(const __grid_constant__ LookupTable tab,
                        const float* __restrict__ coords,
@@ -68,7 +71,7 @@ corr_lookup_fwd_kernel(const __grid_constant__ LookupTable tab,
                  ((size_t)tab.slot_k[s] * M + m) * (size_t)(L.hl * L.wl);
   float* ps = patch_s[warp];
   Axes<R>& ax = axes_s[warp];
-  stage_patch<R>(p, map, L.hl, L.wl, ps, lane);
+  stage_patch<R, !(kProbe & kProbeNoPatch)>(p, map, L.hl, L.wl, ps, lane);
   make_axes<R>(p, ax, lane);
   __syncwarp();
 
@@ -80,29 +83,32 @@ corr_lookup_fwd_kernel(const __grid_constant__ LookupTable tab,
     const int i = tp / kWin, j = tp - i * kWin;
     float v00, v01, v10, v11;
     corners<R>(p, ps, ax, i, j, v00, v01, v10, v11);
-    store_from_f32(o + tp,
-                   corr_tap::blend(v00, v01, v10, v11, ax.fx[j], ax.fy[i]));
+    const float v = corr_tap::blend(v00, v01, v10, v11, ax.fx[j], ax.fy[i]);
+    if (!(kProbe & kProbeNoStore) || probe_keeps(v)) store_from_f32(o + tp, v);
   }
 }
 
-template <typename T, int R>
+template <typename T, int R, int kProbe = 0>
 int launch_r(const LookupTable* tab, const void* coords, void* out,
              void* stream) {
   const long long items = tab->queries * tab->n_slots;
   if (items == 0) return (int)cudaSuccess;
   const long long blocks = (items + kWarps - 1) / kWarps;
-  corr_lookup_fwd_kernel<T, R><<<(unsigned)blocks, kWarps * 32, 0,
-                                 (cudaStream_t)stream>>>(
+  corr_lookup_fwd_kernel<T, R, kProbe><<<(unsigned)blocks, kWarps * 32, 0,
+                                         (cudaStream_t)stream>>>(
       *tab, (const float*)coords, (T*)out);
   return (int)cudaGetLastError();
+}
+
+bool valid(const LookupTable* tab) {
+  return tab->n_slots >= 1 && tab->n_slots <= kMaxSlots &&
+         tab->queries * tab->n_slots < (1LL << 31);
 }
 
 template <typename T>
 int launch(const LookupTable* tab, const void* coords, void* out,
            void* stream) {
-  if (tab->n_slots < 1 || tab->n_slots > kMaxSlots ||
-      tab->queries * tab->n_slots >= (1LL << 31))
-    return (int)cudaErrorInvalidValue;
+  if (!valid(tab)) return (int)cudaErrorInvalidValue;
   switch (tab->radius) {  // one instantiation per radius: unrolled loops
     case 1: return launch_r<T, 1>(tab, coords, out, stream);
     case 2: return launch_r<T, 2>(tab, coords, out, stream);
@@ -130,6 +136,25 @@ int corr_lookup_fwd_f32(const LookupTable* tab, const void* coords,
 int corr_lookup_fwd_bf16(const LookupTable* tab, const void* coords,
                          void* out, void* stream) {
   return launch<__nv_bfloat16>(tab, coords, out, stream);
+}
+
+// The probe variants of the bf16 kernel at r = 4 (the flagship's), for
+// measurement only: probe is 0 or an or of kProbeNoPatch, kProbeNoStore.
+int corr_lookup_fwd_probe_bf16(const LookupTable* tab, const void* coords,
+                               void* out, int probe, void* stream) {
+  using T = __nv_bfloat16;
+  if (!valid(tab) || tab->radius != 4) return (int)cudaErrorInvalidValue;
+  switch (probe) {
+    case 0: return launch_r<T, 4, 0>(tab, coords, out, stream);
+    case kProbeNoPatch:
+      return launch_r<T, 4, kProbeNoPatch>(tab, coords, out, stream);
+    case kProbeNoStore:
+      return launch_r<T, 4, kProbeNoStore>(tab, coords, out, stream);
+    case kProbeNoPatch | kProbeNoStore:
+      return launch_r<T, 4, kProbeNoPatch | kProbeNoStore>(tab, coords, out,
+                                                           stream);
+    default: return (int)cudaErrorInvalidValue;
+  }
 }
 
 }  // extern "C"

@@ -46,6 +46,22 @@ struct LookupTable {
   long long ld;       // row stride, in elements, of the output / cotangent
 };
 
+// Probe variants of the two kernels (chip_smoke.py --lookup-probe): the
+// same code with parts of its memory traffic taken out, to show where the
+// time goes. Their results are wrong by design; the wrappers never launch
+// them. A probe is an or of these bits; 0 is the kernel itself.
+enum Probe : int {
+  kProbeNoPatch = 1,      // stage zeros instead of the volume patch
+  kProbeNoStore = 2,      // forward: blend every tap, store none
+  kProbeNoAccRead = 4,    // backward: add to 0, not to the accumulator
+  kProbeNoCotangent = 8,  // backward: one value, not the 81 cotangents
+};
+// true for no value a tap takes: a no-store probe stores under it, so the
+// compiler keeps the work whose result it drops
+__device__ __forceinline__ bool probe_keeps(float v) {
+  return __float_as_uint(v) == 0x7fc00001u;
+}
+
 __device__ __forceinline__ float load_f32(const float* p) { return __ldg(p); }
 __device__ __forceinline__ float load_f32(const __nv_bfloat16* p) {
   return __bfloat162float(*p);
@@ -99,8 +115,9 @@ __device__ __forceinline__ Patch<R> make_patch(float x, float y, int hl,
 }
 
 // the patch of map m, one warp: every lane's loads are issued before any
-// is used (a fixed, unrolled count), then stored to s (kCells floats)
-template <int R, typename T>
+// is used (a fixed, unrolled count), then stored to s (kCells floats);
+// zeros without kLoad (kProbeNoPatch)
+template <int R, bool kLoad = true, typename T>
 __device__ __forceinline__ void stage_patch(const Patch<R>& p,
                                             const T* __restrict__ m, int hl,
                                             int wl, float* s, int lane) {
@@ -113,7 +130,8 @@ __device__ __forceinline__ void stage_patch(const Patch<R>& p,
     const int a = c / kSide, b = c - a * kSide;
     const int row = p.iy0 + a, col = p.ix0 + b;
     v[k] = 0.f;
-    if (p.live && c < kCells && row >= 0 && row < hl && col >= 0 && col < wl)
+    if (kLoad && p.live && c < kCells && row >= 0 && row < hl && col >= 0 &&
+        col < wl)
       v[k] = load_f32(m + (int64_t)row * wl + col);
   }
 #pragma unroll

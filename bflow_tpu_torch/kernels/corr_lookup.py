@@ -28,8 +28,8 @@ passes the volumes through as a zero-size token that every lookup takes
 as its differentiable input, so it runs after all of them and hands the
 summed buffers to the volumes' producer once per backward pass.
 
-The one-level entries (corr_lookup_level, lookup_bwd_into,
-lookup_bwd_cuda) are the same kernels with a one-level table and
+The one-level entries (corr_lookup_level, lookup_bwd_cuda) are the same
+kernels and the same autograd structure with a one-level table and
 (Q, hl, wl) volumes, (Q, 2) coords at the level's scale, (Q, 81) taps.
 
 The wrappers take the plain versions only for tensors on the CPU, through
@@ -439,15 +439,17 @@ class VolumeSink:
         self._key = None
 
     def token(self, vols: Sequence[torch.Tensor]):
-        """(token, accumulators) for lookups of these volumes: the sink's
-        own for the volumes of its first call, a one-off for others."""
+        """(token, accumulators) for lookups of these volumes, which must
+        be the volumes of the sink's first call."""
         key = [(v.data_ptr(), tuple(v.shape)) for v in vols]
         if self._token is None:
             self._acc = _Accumulators(vols)
             self._token = _SinkFn.apply(self._acc, *vols)
             self._key = key
         elif key != self._key:
-            return VolumeSink().token(vols)
+            raise ValueError(
+                "this VolumeSink serves other volumes: one sink per pyramid, "
+                "every lookup with the same kernel-routed levels")
         return self._token, self._acc
 
 
@@ -476,10 +478,10 @@ def corr_lookup_pyramid(table: Sequence[TableLevel], coords: torch.Tensor,
                         sink: Optional[VolumeSink] = None) -> torch.Tensor:
     """The all-level lookup (N, h1, w1, C) of the module docstring: one
     kernel launch for CUDA tensors, corr_lookup_pyramid_plain for CPU
-    tensors. Under autograd, dVol goes through ``sink`` (one per pyramid,
-    serving the table's volumes in table order, so that every iteration's
-    lookups share its accumulators); without one a sink is made for this
-    call."""
+    tensors. When the volumes need gradients, dVol goes through ``sink``,
+    which is then required: one per pyramid, serving the table's volumes
+    in table order, so that every iteration's lookups share its
+    accumulators."""
     table = tuple(table)
     _check_table(table, coords, radius)
     vol_grad = any(lv.vol.requires_grad for lv in table)
@@ -487,7 +489,11 @@ def corr_lookup_pyramid(table: Sequence[TableLevel], coords: torch.Tensor,
         return _pyramid_fwd(table, coords.detach(), radius)
     token, acc = coords.new_empty(0), None
     if vol_grad:
-        token, acc = (sink or VolumeSink()).token([lv.vol for lv in table])
+        if sink is None:
+            raise ValueError(
+                "volumes that need gradients take the pyramid's VolumeSink "
+                "(models.corr.CorrPyramid carries one)")
+        token, acc = sink.token([lv.vol for lv in table])
     plain = tuple(TableLevel(lv.vol.detach(), lv.targets, lv.level)
                   for lv in table)
     return _PyramidLookupFn.apply(token, coords, acc, plain, radius)
@@ -520,56 +526,23 @@ def _one_level(vol: torch.Tensor, coords: torch.Tensor):
             coords.reshape(1, 1, 1, Q, 2))
 
 
-def lookup_bwd_into(vol: torch.Tensor, coords: torch.Tensor,
-                    g: torch.Tensor, radius: int, dvol,
-                    need_coords: bool = True):
-    """One backward launch for one level: adds dvol (rounded to vol's type
-    per cell) into the f32 accumulator ``dvol`` of vol's shape (or None)
-    and returns dcoords (Q, 2) f32 (or None). CUDA tensors."""
-    table, c = _one_level(vol, coords)
-    Q = vol.shape[0]
-    dc = lookup_pyramid_bwd_cuda(
-        table, c, g.reshape(1, 1, Q, -1), radius,
-        None if dvol is None else [dvol.reshape(table[0].vol.shape)],
-        need_coords)
-    return None if dc is None else dc.reshape(Q, 2)
-
-
 def lookup_bwd_cuda(vol: torch.Tensor, coords: torch.Tensor,
                     g: torch.Tensor, radius: int, need_vol: bool = True,
                     need_coords: bool = True):
-    """(dvol or None, dcoords or None) of one level through the backward
-    kernel: dvol zeroed, then filled, in vol's type."""
+    """(dvol or None, dcoords (Q, 2) f32 or None) of one level through one
+    backward launch (CUDA tensors): dvol zeroed, then filled, in vol's
+    type."""
     Q = vol.shape[0]
     win = 2 * radius + 1
     if g.shape != (Q, win * win):
         raise ValueError(f"cotangent {tuple(g.shape)}, want {(Q, win * win)}")
-    acc = (torch.zeros(vol.shape, dtype=torch.float32, device=vol.device)
-           if need_vol else None)
-    dcoords = lookup_bwd_into(vol, coords, g, radius, acc, need_coords)
-    dvol = None if acc is None else acc.to(vol.dtype)
-    return dvol, dcoords
-
-
-class _LookupFn(torch.autograd.Function):
-    """The one-level CUDA lookup with the CUDA backward as its VJP."""
-
-    @staticmethod
-    def forward(ctx, vol, coords, radius):
-        ctx.radius = radius
-        ctx.save_for_backward(vol, coords)
-        table, c = _one_level(vol, coords)
-        return lookup_pyramid_cuda(table, c, radius).reshape(vol.shape[0],
-                                                             -1)
-
-    @staticmethod
-    @torch.autograd.function.once_differentiable
-    def backward(ctx, g):
-        vol, coords = ctx.saved_tensors
-        need_vol, need_coords = ctx.needs_input_grad[:2]
-        dvol, dcoords = lookup_bwd_cuda(vol, coords, g, ctx.radius,
-                                        need_vol, need_coords)
-        return dvol, dcoords, None
+    table, c = _one_level(vol, coords)
+    acc = (torch.zeros(table[0].vol.shape, dtype=torch.float32,
+                       device=vol.device) if need_vol else None)
+    dc = lookup_pyramid_bwd_cuda(table, c, g.reshape(1, 1, Q, -1), radius,
+                                 None if acc is None else [acc], need_coords)
+    dvol = None if acc is None else acc.reshape(vol.shape).to(vol.dtype)
+    return dvol, None if dc is None else dc.reshape(Q, 2)
 
 
 def corr_lookup_level(vol: torch.Tensor, coords: torch.Tensor,
@@ -577,9 +550,10 @@ def corr_lookup_level(vol: torch.Tensor, coords: torch.Tensor,
     """(Q, hl, wl) volume, (Q, 2) coords -> (Q, (2r+1)^2) taps: the
     one-level entry.
 
-    CUDA tensors go through the hand-written kernels with a one-level
-    table (forward, and the backward kernel under autograd), CPU tensors
-    through corr_lookup_level_plain, whose gradient is torch's own."""
+    CUDA tensors go through corr_lookup_pyramid with a one-level table
+    (the forward kernel, and under autograd the backward kernel with a
+    sink of its own), CPU tensors through corr_lookup_level_plain, whose
+    gradient is torch's own."""
     _check(vol, coords, radius)
     if vol.device.type == "cpu":
         return corr_lookup_level_plain(vol, coords, radius)
@@ -587,7 +561,9 @@ def corr_lookup_level(vol: torch.Tensor, coords: torch.Tensor,
         raise ValueError(f"unsupported device {vol.device}")
     if not (vol.is_contiguous() and coords.is_contiguous()):
         raise ValueError("vol and coords must be contiguous")
-    return _LookupFn.apply(vol, coords, radius)
+    table, c = _one_level(vol, coords)
+    return corr_lookup_pyramid(table, c, radius,
+                               VolumeSink()).reshape(vol.shape[0], -1)
 
 
 # ---------------------------------------------------------------------------

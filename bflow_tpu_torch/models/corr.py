@@ -49,8 +49,9 @@ CorrLevel = Tuple[Tuple[int, ...],
 
 class CorrPyramid(list):
     """The list of CorrLevel that the pyramid builders return, carrying
-    the VolumeSink that every lookup of it shares under autograd (a plain
-    list works too: each corr_lookup call then makes its own sink)."""
+    the VolumeSink that every lookup of it shares under autograd.
+    corr_lookup takes a plain list too, but not on the kernel path with
+    volumes that need gradients: that path needs the sink."""
 
     def __init__(self, levels=()):
         super().__init__(levels)
@@ -259,8 +260,8 @@ def corr_lookup(
     # map (N, h1, w1, C), in table order
     kmap = None
     if table:
-        kmap = corr_lookup_pyramid(table, coords, radius,
-                                   getattr(pyramid, "sink", None))
+        sink = pyramid.sink if isinstance(pyramid, CorrPyramid) else None
+        kmap = corr_lookup_pyramid(table, coords, radius, sink)
         kviews = kmap.reshape(N, h1, w1, -1, win2).permute(3, 0, 1, 2, 4)
         s = 0
         for lvl, feat in enumerate(outs):

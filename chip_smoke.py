@@ -2,6 +2,7 @@
 """Smoke run of the PyTorch port (bflow_tpu_torch) on one NVIDIA GPU.
 
     python3 chip_smoke.py [--profile DIR] [--seed N] [--conv-sweep]
+                          [--lookup-probe]
 
 Run from the repository root, on a machine with a CUDA GPU and the CUDA
 toolkit (nvcc). Phases, each printing JSON lines:
@@ -51,13 +52,16 @@ nonzero before that line; so does a machine without CUDA. The profiles
 DIR also writes their chrome traces into DIR.
 --conv-sweep runs phases 1 and 2, then times every tile variant of the conv
 kernels at every flagship conv shape beside the one the tile plan picks,
-and stops.
+and stops. --lookup-probe runs phases 1 and 2, then times the all-level
+lookup kernels' probe variants (patch loads, stores, accumulator read or
+cotangents taken out) at the flagship shapes, and stops.
 """
 
 from __future__ import annotations
 
 import argparse
 import contextlib
+import ctypes
 import dataclasses
 import json
 import re
@@ -177,18 +181,33 @@ def level_inputs(Tl: int, hl: int, wl: int, dtype: torch.dtype, seed: int,
     return vol, coords
 
 
-def lookup_bound_bytes(vol: torch.Tensor, coords: torch.Tensor,
-                       radius: int) -> int:
-    """Bytes the lookup must move for these inputs: per query the part of
-    its (2r+2)^2 patch inside the map, its coords, and its outputs."""
-    Q, hl, wl = vol.shape
+def patch_cells(vol: torch.Tensor, coords: torch.Tensor, radius: int) -> int:
+    """The cells of every query's (2r+2)^2 patch that lie inside its map:
+    (Q, hl, wl) maps, (Q, 2) coords at the maps' scale."""
+    _, hl, wl = vol.shape
     p = 2 * radius + 2
     lo = torch.floor(coords) - radius  # first patch column / row
     nx = (torch.clamp(lo[:, 0] + p, max=wl) - torch.clamp(lo[:, 0], min=0))
     ny = (torch.clamp(lo[:, 1] + p, max=hl) - torch.clamp(lo[:, 1], min=0))
-    patch = (nx.clamp(min=0) * ny.clamp(min=0)).sum().item()
-    item = vol.element_size()
-    return int(patch * item + Q * 8 + Q * (2 * radius + 1) ** 2 * item)
+    return int((nx.clamp(min=0) * ny.clamp(min=0)).sum().item())
+
+
+def _table_coord_bytes(table, coords) -> int:
+    """The base coords the all-level kernels read: 8 bytes per query
+    position of every target the table names, once however many of its
+    levels name it."""
+    return len({t for lv in table for t in lv.targets}) * coords[0].numel() * 4
+
+
+def pyramid_bound_bytes(table, coords, radius: int) -> int:
+    """Bytes the all-level lookup must move for these inputs: per (level,
+    target) slot its queries' in-map patch cells and their outputs, and the
+    base coords once per target."""
+    taps = (2 * radius + 1) ** 2
+    item = table[0].vol.element_size()
+    slots = sum(patch_cells(*level_views(lv, coords), radius) * item
+                + lv.vol.shape[:4].numel() * taps * item for lv in table)
+    return slots + _table_coord_bytes(table, coords)
 
 
 def _sample_grid(vol: torch.Tensor, coords: torch.Tensor, radius: int):
@@ -227,17 +246,18 @@ def check_lookup_level(Tl, hl, wl, dtype, seed):
             "max_abs_err": err, "max_abs_ref": ref, "ok": err == 0.0}
 
 
-def lookup_bwd_bound_bytes(vol: torch.Tensor, coords: torch.Tensor,
-                           radius: int) -> int:
-    """Bytes the lookup's VJP must move for these inputs: per query its
-    cotangents, coords and dcoords, the part of its (2r+2)^2 patch inside
-    the map read from vol, and that patch of the f32 dVol accumulator read
-    and written (4 + 4 bytes per cell: the backward adds into it)."""
-    Q = vol.shape[0]
-    item = vol.element_size()
-    fwd = lookup_bound_bytes(vol, coords, radius)  # patch + coords + taps
-    patch = (fwd - Q * 8 - Q * (2 * radius + 1) ** 2 * item) // item
-    return int(patch * (item + 8) + Q * 16 + Q * (2 * radius + 1) ** 2 * item)
+def pyramid_bwd_bound_bytes(table, coords, radius: int) -> int:
+    """Bytes the all-level lookup's VJP must move for these inputs: per
+    (level, target) slot its queries' cotangents, the in-map cells of their
+    (2r+2)^2 patches read from vol, and those cells of the f32 dVol
+    accumulator read and written (4 + 4 bytes each: the backward adds into
+    it); the base coords read once per target the table names, and dcoords
+    written once per base target."""
+    taps = (2 * radius + 1) ** 2
+    item = table[0].vol.element_size()
+    slots = sum(patch_cells(*level_views(lv, coords), radius) * (item + 8)
+                + lv.vol.shape[:4].numel() * taps * item for lv in table)
+    return slots + _table_coord_bytes(table, coords) + coords.numel() * 4
 
 
 def grid_sample_vjp_call(vol: torch.Tensor, coords: torch.Tensor,
@@ -349,8 +369,7 @@ def check_lookup_pyramid(n, h1, w1, dtype, seed, timing=True):
            "per_level_equal": per_level, "ok": err == 0.0 and per_level}
     if not timing:
         return rec
-    bound_bytes = sum(lookup_bound_bytes(*level_views(lv, coords), RADIUS)
-                      for lv in table)
+    bound_bytes = pyramid_bound_bytes(table, coords, RADIUS)
     rec.update(
         ms=time_ms(lambda: klookup.lookup_pyramid_cuda(table, coords,
                                                        RADIUS)),
@@ -442,8 +461,7 @@ def check_lookup_pyramid_bwd(n, h1, w1, dtype, seed, iters=ITERS,
                   and repeat and twin_is_sum)}
     if not timing:
         return rec
-    bound_bytes = sum(lookup_bwd_bound_bytes(*level_views(lv, coords),
-                                             RADIUS) for lv in table)
+    bound_bytes = pyramid_bwd_bound_bytes(table, coords, RADIUS)
     g0 = gs[0]
     rec.update(
         ms=time_ms(lambda: klookup.lookup_pyramid_bwd_cuda(
@@ -478,6 +496,60 @@ def check_lookup_pyramid_bwd(n, h1, w1, dtype, seed, iters=ITERS,
     rec["library_what"] = ("the grid_sample VJP once per level, summed "
                            "(each zero-fills its own input gradient)")
     return rec
+
+
+# csrc/corr_lookup_table.cuh: Probe
+PROBE_NO_PATCH, PROBE_NO_STORE, PROBE_NO_ACC_READ, PROBE_NO_COTANGENT = (
+    1, 2, 4, 8)
+FWD_PROBES = {"kernel": 0, "no_patch": PROBE_NO_PATCH,
+              "no_store": PROBE_NO_STORE,
+              "no_patch_no_store": PROBE_NO_PATCH | PROBE_NO_STORE}
+BWD_PROBES = {"kernel": 0, "no_patch": PROBE_NO_PATCH,
+              "no_acc_read": PROBE_NO_ACC_READ,
+              "no_cotangent": PROBE_NO_COTANGENT,
+              "no_loads": (PROBE_NO_PATCH | PROBE_NO_ACC_READ
+                           | PROBE_NO_COTANGENT)}
+
+
+def lookup_probe(seed: int) -> None:
+    """Where the all-level lookups' time goes: their bf16 r = 4 probe
+    variants (the kernel's code with the volume patch's loads, the stores,
+    the accumulator's read or the cotangents' loads taken out; their
+    results are wrong by design and not read) at the flagship shapes, L2
+    flushed before each launch, beside the kernel through its wrapper.
+    Each probe's time is printed with its difference from the whole
+    kernel's (probe 0, the same code)."""
+    ptr = ctypes.POINTER(klookup._LookupTable)
+    vp = ctypes.c_void_p
+    fwd = kbuild.function(klookup.NAME, "corr_lookup_fwd_probe_bf16",
+                          [ptr, vp, vp, ctypes.c_int, vp])
+    bwd = kbuild.function(klookup.BWD_NAME, "corr_lookup_bwd_probe_bf16",
+                          [ptr, vp, vp, vp, ctypes.c_int, vp])
+    table, coords = pyramid_inputs(1, H1, W1, torch.bfloat16, seed)
+    dev = coords.device
+    out = klookup.lookup_pyramid_cuda(table, coords, RADIUS)
+    tab = klookup._table_struct(table, coords, RADIUS, out.shape[-1])
+    ms = {"wrapper": time_ms(lambda: klookup.lookup_pyramid_cuda(
+        table, coords, RADIUS))}
+    for name, bits in FWD_PROBES.items():
+        ms[name] = time_ms(lambda: kbuild.launch(
+            fwd, dev, ctypes.byref(tab), coords.data_ptr(), out.data_ptr(),
+            bits))
+    emit("lookup_probe", kernel=klookup.NAME, ms=ms,
+         saved_ms={k: ms["kernel"] - v for k, v in ms.items()})
+    gen = torch.Generator(device="cuda").manual_seed(seed + 100)
+    g = torch.randn(out.shape, generator=gen, device="cuda").to(out.dtype)
+    acc = [torch.zeros(lv.vol.shape, device="cuda") for lv in table]
+    dc = torch.empty_like(coords)
+    tab = klookup._table_struct(table, coords, RADIUS, out.shape[-1], acc)
+    ms = {"wrapper": time_ms(lambda: klookup.lookup_pyramid_bwd_cuda(
+        table, coords, g, RADIUS, acc))}
+    for name, bits in BWD_PROBES.items():
+        ms[name] = time_ms(lambda: kbuild.launch(
+            bwd, dev, ctypes.byref(tab), coords.data_ptr(), g.data_ptr(),
+            dc.data_ptr(), bits))
+    emit("lookup_probe", kernel=klookup.BWD_NAME, ms=ms,
+         saved_ms={k: ms["kernel"] - v for k, v in ms.items()})
 
 
 # ---------------------------------------------------------------------------
@@ -714,8 +786,8 @@ def check_q8_level(Tl, hl, wl, seed, timing=True):
     # bytes it must move: the int8 part of each query's patch inside the
     # map, one f32 scale per query row, the coords and the bf16 taps
     Q, taps = vol.shape[0], (2 * RADIUS + 1) ** 2
-    bf16_patch = lookup_bound_bytes(vol, coords, RADIUS) - Q * 8 - Q * taps * 2
-    bound_bytes = bf16_patch // 2 + scale.numel() * 4 + Q * 8 + Q * taps * 2
+    bound_bytes = (patch_cells(vol, coords, RADIUS) + scale.numel() * 4
+                   + Q * 8 + Q * taps * 2)
     rec.update(
         ms=time_ms(lambda: klookup.corr_lookup_level_q8(vq, scale, coords,
                                                         RADIUS)),
@@ -1031,6 +1103,9 @@ def main() -> int:
                     help="after the build, time every tile variant of the "
                          "conv kernels on every flagship conv shape "
                          "(phase conv_sweep), and stop")
+    ap.add_argument("--lookup-probe", action="store_true",
+                    help="after the build, time the lookup kernels' probe "
+                         "variants (phase lookup_probe), and stop")
     ap.add_argument("--profile", metavar="DIR",
                     help="write the chrome traces of the profiled forward "
                          "and train step into DIR")
@@ -1062,8 +1137,11 @@ def main() -> int:
          conv_variants={k: conv_variant_resources(report[k]["ptxas"])
                         for k in (kstem.NAME, kconv.NAME)})
 
-    if args.conv_sweep:
-        conv_sweep(args.seed)
+    if args.conv_sweep or args.lookup_probe:
+        if args.conv_sweep:
+            conv_sweep(args.seed)
+        if args.lookup_probe:
+            lookup_probe(args.seed)
         print(json.dumps({"ok": True, "device": {
             "platform": "gpu", "kind": kind,
             "count": torch.cuda.device_count()}}), flush=True)

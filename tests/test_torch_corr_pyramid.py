@@ -347,6 +347,61 @@ def test_no_sink_without_volume_gradients():
         assert tcorr.corr_lookup(pyr, c, R, "pallas").grad_fn is None
 
 
+def test_sink_refuses_other_volumes_and_missing_sink():
+    """The kernel path under autograd needs the pyramid's sink: a plain
+    list of volumes that need gradients is refused (the gather path and a
+    plain list without volume gradients still run), as is a sink asked to
+    serve volumes other than those of its first call."""
+    ref, tgt, coords = _inputs(14, 8, 8)
+    fmaps = [torch.from_numpy(a).requires_grad_(True) for a in (ref, tgt)]
+    pyr = tcorr.build_corr_pyramid(*fmaps, LEVELS)
+    c = torch.from_numpy(coords)
+    with pytest.raises(ValueError, match="VolumeSink"):
+        tcorr.corr_lookup(list(pyr), c, R, "pallas")
+    assert tcorr.corr_lookup(list(pyr), c, R, "gather").grad_fn is not None
+    detached = [(idx, vol.detach()) for idx, vol in pyr]
+    assert torch.equal(tcorr.corr_lookup(detached, c, R, "pallas"),
+                       tcorr.corr_lookup(pyr, c, R, "pallas").detach())
+    with pytest.raises(ValueError, match="VolumeSink"):
+        klookup.corr_lookup_pyramid(_table(pyr), c, R)
+    with pytest.raises(ValueError, match="other volumes"):
+        klookup.corr_lookup_pyramid(_table(pyr)[:2], c, R, pyr.sink)
+    with pytest.raises(ValueError, match="other volumes"):
+        tcorr.corr_lookup(pyr, c, R, "pallas", onehot_from_level=2)
+
+
+@pytest.mark.parametrize("levels", [slice(None), slice(1, None)])
+def test_chip_smoke_lookup_bounds_count_coords_once_per_target(levels):
+    """chip_smoke's all-level bounds against a count cell by cell: per
+    (level, target) slot the in-map cells of each query's (2r+2)^2 patch
+    (read from vol; and in the backward from the f32 accumulator, read and
+    written) and its 81 taps (written; in the backward the cotangents,
+    read); the base coords read once per target the table names, and in
+    the backward dcoords written once per base target."""
+    import chip_smoke
+
+    table, coords = chip_smoke.pyramid_inputs(1, 6, 10, torch.float32, 15,
+                                              device="cpu")
+    table = table[levels]
+    cells = taps = 0
+    for lv in table:
+        maps, cl = klookup._level_maps(lv), klookup._level_coords(coords, lv)
+        hl, wl = maps.shape[1:]
+        for x, y in np.floor(cl.numpy()).astype(np.int64):
+            rows = [r for r in range(y - R, y + R + 2) if 0 <= r < hl]
+            cols = [q for q in range(x - R, x + R + 2) if 0 <= q < wl]
+            cells += len(rows) * len(cols)
+        taps += maps.shape[0] * WIN2
+    M = 6 * 10
+    named = len({t for lv in table for t in lv.targets})
+    assert named == (5 if levels.start is None else 2)
+    assert cells > 0
+    assert chip_smoke.pyramid_bound_bytes(table, coords, R) == (
+        4 * cells + 4 * taps + 8 * M * named)
+    assert chip_smoke.pyramid_bwd_bound_bytes(table, coords, R) == (
+        12 * cells + 4 * taps + 8 * M * named + 8 * M * 5)
+
+
 @pytest.mark.parametrize("dtype", list(DTYPES))
 def test_fused_convc1_on_concat_map_equals_per_level_cat(dtype):
     """With fuse_corr_conv the motion encoder reads the lookup's
