@@ -247,15 +247,18 @@ int launch_r(const LookupTable* tab, const void* coords, const void* g,
   return (int)cudaGetLastError();
 }
 
+// every level of type T: the int8 lookup has no backward
+template <typename T>
 bool valid(const LookupTable* tab) {
   return tab->n_slots >= 1 && tab->n_slots <= kMaxSlots &&
-         tab->queries <= 0x7fffffffLL;
+         tab->queries <= 0x7fffffffLL &&
+         levels_valid(tab, level_type_of<T>(), false);
 }
 
 template <typename T>
 int launch(const LookupTable* tab, const void* coords, const void* g,
            void* dcoords, void* stream) {
-  if (!valid(tab)) return (int)cudaErrorInvalidValue;
+  if (!valid<T>(tab)) return (int)cudaErrorInvalidValue;
   switch (tab->radius) {  // one instantiation per radius: unrolled loops
     case 1: return launch_r<T, 1>(tab, coords, g, dcoords, stream);
     case 2: return launch_r<T, 2>(tab, coords, g, dcoords, stream);
@@ -272,11 +275,12 @@ int launch(const LookupTable* tab, const void* coords, const void* g,
 
 extern "C" {
 
-// tab: the level table, each level's dvol an f32 accumulator of its
-// volume's shape (added into) or NULL; coords (T, M, 2) f32 contiguous; g
-// (M, ld) in the volumes' type, slot s's window at channels (2r+1)^2 s ..;
-// dcoords (T, M, 2) f32, every element written, or NULL. Returns
-// cudaGetLastError().
+// tab: the level table (every level of the kernel's type: a table with an
+// int8 level returns cudaErrorInvalidValue), each level's dvol an f32
+// accumulator of its volume's shape (added into) or NULL; coords (T, M, 2)
+// f32 contiguous; g (M, ld) in the volumes' type, slot s's window at
+// channels (2r+1)^2 s ..; dcoords (T, M, 2) f32, every element written, or
+// NULL. Returns cudaGetLastError().
 int corr_lookup_bwd_f32(const LookupTable* tab, const void* coords,
                         const void* g, void* dcoords, void* stream) {
   return launch<float>(tab, coords, g, dcoords, stream);
@@ -295,7 +299,7 @@ int corr_lookup_bwd_probe_bf16(const LookupTable* tab, const void* coords,
                                void* stream) {
   using T = __nv_bfloat16;
   constexpr int kAll = kProbeNoPatch | kProbeNoAccRead | kProbeNoCotangent;
-  if (!valid(tab) || tab->radius != 4) return (int)cudaErrorInvalidValue;
+  if (!valid<T>(tab) || tab->radius != 4) return (int)cudaErrorInvalidValue;
   switch (probe) {
     case 0: return launch_r<T, 4, 0>(tab, coords, g, dcoords, stream);
     case kProbeNoPatch:

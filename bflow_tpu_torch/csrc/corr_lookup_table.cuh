@@ -1,36 +1,46 @@
 // The level table of the all-level correlation lookup kernels
-// (corr_lookup_fwd.cu, corr_lookup_bwd.cu), and the per-query patch they
-// both stage.
+// (corr_lookup_fwd.cu, corr_lookup_bwd.cu), the per-query patch they both
+// stage, and the bilinear blend of a tap.
 //
 // A table lists up to kMaxLevels pyramid levels. Level i holds one (hl, wl)
-// map per (target slot k, query m), laid out (n_targets, M, hl, wl), and
-// scales the base coords by `scale` = 2^-l (exact). A slot s is one
+// map per (target slot k, query m), laid out (n_targets, M, hl, wl), in
+// the level's type (f32, bf16, or int8 with one f32 scale per query row),
+// and scales the base coords by `scale` = 2^-l (exact). A slot s is one
 // (level, target) pair; slots are numbered level-major, so channel block s
 // of an output row (81 channels for r = 4) is slot s's window: the
 // (level, target, window) order of the JAX package's corr_lookup. Base
 // coords are (n_targets, M, 2) f32, (x, y). The wrapper
 // (kernels/corr_lookup.py: _LookupTable) mirrors this struct field for
-// field and checks every bound before a launch.
+// field (the static_asserts below hold the layout a CPU test reads) and
+// checks every bound before a launch.
 
 #pragma once
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+#include <stddef.h>
 #include <stdint.h>
-
-#include "corr_lookup_tap.cuh"
 
 namespace corr_table {
 
 constexpr int kMaxLevels = 8;
 constexpr int kMaxSlots = 32;  // also the backward's warps per block
 
+// the type of a level's volume (kernels/corr_lookup.py: _LEVEL_TYPES)
+enum LevelType : int { kLevelF32 = 0, kLevelBF16 = 1, kLevelInt8 = 2 };
+
 struct LevelDesc {
-  const void* vol;  // (n_targets, M, hl, wl) in the kernel's type
+  const void* vol;  // (n_targets, M, hl, wl) of the level's type
   float* dvol;      // f32 accumulator of vol's shape, or null (backward)
+  // int8 levels: (n_targets, M / w1) f32, the scale of query row
+  // m / w1 of slot k at k * (M / w1) + m / w1 (quantize_volume's
+  // (Tl, N, h1)); null otherwise
+  const float* row_scale;
   int hl, wl;
   int n_targets;
   float scale;  // 2^-level
+  int type;     // LevelType
+  int pad;
 };
 
 struct LookupTable {
@@ -41,10 +51,59 @@ struct LookupTable {
   int n_slots;
   int n_targets;  // base targets T
   int radius;
-  int pad;
-  long long queries;  // M = N * h1 * w1
+  int w1;             // queries per row (M = N * h1 * w1)
+  long long queries;  // M
   long long ld;       // row stride, in elements, of the output / cotangent
 };
+
+// The layout the ctypes mirror must have (tests/test_torch_corr_q8.py
+// reads these lines); passed by value as a __grid_constant__ parameter,
+// far below its 4 KB limit.
+static_assert(sizeof(LevelDesc) == 48, "LevelDesc layout");
+static_assert(offsetof(LevelDesc, vol) == 0, "LevelDesc layout");
+static_assert(offsetof(LevelDesc, dvol) == 8, "LevelDesc layout");
+static_assert(offsetof(LevelDesc, row_scale) == 16, "LevelDesc layout");
+static_assert(offsetof(LevelDesc, hl) == 24, "LevelDesc layout");
+static_assert(offsetof(LevelDesc, wl) == 28, "LevelDesc layout");
+static_assert(offsetof(LevelDesc, n_targets) == 32, "LevelDesc layout");
+static_assert(offsetof(LevelDesc, scale) == 36, "LevelDesc layout");
+static_assert(offsetof(LevelDesc, type) == 40, "LevelDesc layout");
+static_assert(sizeof(LookupTable) == 512, "LookupTable layout");
+static_assert(offsetof(LookupTable, slot_level) == 384, "LookupTable layout");
+static_assert(offsetof(LookupTable, slot_k) == 416, "LookupTable layout");
+static_assert(offsetof(LookupTable, slot_target) == 448,
+              "LookupTable layout");
+static_assert(offsetof(LookupTable, n_slots) == 480, "LookupTable layout");
+static_assert(offsetof(LookupTable, n_targets) == 484, "LookupTable layout");
+static_assert(offsetof(LookupTable, radius) == 488, "LookupTable layout");
+static_assert(offsetof(LookupTable, w1) == 492, "LookupTable layout");
+static_assert(offsetof(LookupTable, queries) == 496, "LookupTable layout");
+static_assert(offsetof(LookupTable, ld) == 504, "LookupTable layout");
+
+// true when every slot's level is of type `tag`, or int8 where `int8_ok`
+// (then with its row scales and a row length that divides M), and every
+// slot names a level of the table's range
+inline bool levels_valid(const LookupTable* tab, int tag, bool int8_ok) {
+  for (int s = 0; s < tab->n_slots; ++s) {
+    if (tab->slot_level[s] >= kMaxLevels) return false;
+    const LevelDesc& L = tab->level[tab->slot_level[s]];
+    if (L.type == kLevelInt8) {
+      if (!int8_ok || L.row_scale == nullptr || tab->w1 < 1 ||
+          tab->queries % tab->w1 != 0)
+        return false;
+    } else if (L.type != tag) {
+      return false;
+    }
+  }
+  return true;
+}
+
+// true when some slot's level is int8
+inline bool has_int8(const LookupTable* tab) {
+  for (int s = 0; s < tab->n_slots; ++s)
+    if (tab->level[tab->slot_level[s]].type == kLevelInt8) return true;
+  return false;
+}
 
 // Probe variants of the two kernels (chip_smoke.py --lookup-probe): the
 // same code with parts of its memory traffic taken out, to show where the
@@ -66,6 +125,10 @@ __device__ __forceinline__ float load_f32(const float* p) { return __ldg(p); }
 __device__ __forceinline__ float load_f32(const __nv_bfloat16* p) {
   return __bfloat162float(*p);
 }
+// an int8 cell as an exact f32 integer
+__device__ __forceinline__ float load_f32(const int8_t* p) {
+  return (float)__ldg(reinterpret_cast<const signed char*>(p));
+}
 __device__ __forceinline__ void store_from_f32(float* p, float v) { *p = v; }
 __device__ __forceinline__ void store_from_f32(__nv_bfloat16* p, float v) {
   *p = __float2bfloat16(v);  // round to nearest even, as torch's .to()
@@ -75,6 +138,12 @@ __device__ __forceinline__ float round_to(float v, const float*) { return v; }
 __device__ __forceinline__ float round_to(float v, const __nv_bfloat16*) {
   return __bfloat162float(__float2bfloat16(v));
 }
+template <typename T>
+constexpr int level_type_of();
+template <>
+constexpr int level_type_of<float>() { return kLevelF32; }
+template <>
+constexpr int level_type_of<__nv_bfloat16>() { return kLevelBF16; }
 
 // One query's patch: the (2r+3)^2 map cells from (floor(x) - r,
 // floor(y) - r), rows y-major. Every corner any tap reads lies inside it:
@@ -115,8 +184,9 @@ __device__ __forceinline__ Patch<R> make_patch(float x, float y, int hl,
 }
 
 // the patch of map m, one warp: every lane's loads are issued before any
-// is used (a fixed, unrolled count), then stored to s (kCells floats);
-// zeros without kLoad (kProbeNoPatch)
+// is used (a fixed, unrolled count), then stored to s (kCells floats; an
+// int8 map's cells as exact integers); zeros without kLoad
+// (kProbeNoPatch)
 template <int R, bool kLoad = true, typename T>
 __device__ __forceinline__ void stage_patch(const Patch<R>& p,
                                             const T* __restrict__ m, int hl,
@@ -175,6 +245,20 @@ __device__ __forceinline__ void make_axes(const Patch<R>& p, Axes<R>& a,
     a.fy[i] = ay.f;
     a.by[i] = p.live ? min(max((int)(ay.c - p.y0), 0), kSide - 2) : 0;
   }
+}
+
+// The four corners (row y0: v00, v01; row y0+1: v10, v11) blended at the
+// fractions (fx, fy): grid_sample(align_corners=True) with zero padding
+// (a corner outside the map is a zero cell of the patch), in f32 in the
+// plain version's operation order (x-blend per row, then y), each
+// operation rounded on its own: no fused multiply-add, so the kernels and
+// their plain versions agree bit for bit.
+__device__ __forceinline__ float blend(float v00, float v01, float v10,
+                                       float v11, float fx, float fy) {
+  const float gx = __fsub_rn(1.f, fx), gy = __fsub_rn(1.f, fy);
+  const float top = __fadd_rn(__fmul_rn(v00, gx), __fmul_rn(v01, fx));
+  const float bot = __fadd_rn(__fmul_rn(v10, gx), __fmul_rn(v11, fx));
+  return __fadd_rn(__fmul_rn(top, gy), __fmul_rn(bot, fy));
 }
 
 // the four corners of tap (i, j) from the staged patch (zeros when not

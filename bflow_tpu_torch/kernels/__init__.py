@@ -11,7 +11,6 @@ from bflow_tpu_torch.kernels import conv3x3, corr_lookup, stem_conv
 KERNELS = {
     corr_lookup.NAME: (corr_lookup, "launches"),
     corr_lookup.BWD_NAME: (corr_lookup, "bwd_launches"),
-    corr_lookup.Q8_NAME: (corr_lookup, "q8_launches"),
     stem_conv.NAME: (stem_conv, "launches"),
     conv3x3.NAME: (conv3x3, "launches"),
 }

@@ -27,7 +27,6 @@ BUILD_DIR = PACKAGE_DIR / "build"
 # kernel name -> source file under csrc/ (which may include csrc/*.cuh)
 SOURCES = {"corr_lookup_fwd": "corr_lookup_fwd.cu",
            "corr_lookup_bwd": "corr_lookup_bwd.cu",
-           "corr_lookup_q8": "corr_lookup_q8.cu",
            "conv3x3": "conv3x3.cu",
            "stem_conv": "stem_conv.cu"}
 

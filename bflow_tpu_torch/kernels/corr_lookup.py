@@ -1,24 +1,25 @@
 """Windowed bilinear correlation lookup: CUDA kernel wrappers (the
-all-level forward and backward, the int8 forward) and their plain PyTorch
-versions, the autograd plumbing that accumulates dVol, and the int8
-quantization of a volume.
+all-level forward, also over int8 levels, and backward) and their plain
+PyTorch versions, the autograd plumbing that accumulates dVol, and the
+int8 quantization of a volume.
 
 Counterpart of the TPU kernels bflow_tpu/ops/pallas/corr_lookup_v3.py:
 _fwd_kernel (also with quant=True, lookup_level_slab_q8) and _bwd_kernel
-(custom VJP _lookup_cvjp). The CUDA sources are csrc/corr_lookup_fwd.cu,
-csrc/corr_lookup_bwd.cu (both over the level table of
-csrc/corr_lookup_table.cuh) and csrc/corr_lookup_q8.cu; their headers say
-what bounds them and how they work. One forward launch looks up every
-level of a level table:
+(custom VJP _lookup_cvjp). The CUDA sources are csrc/corr_lookup_fwd.cu
+and csrc/corr_lookup_bwd.cu, both over the level table of
+csrc/corr_lookup_table.cuh; their headers say what bounds them and how
+they work. One forward launch looks up every level of a level table:
 
   table   per level: its volume (Tl, N, h1, w1, hl, wl), f32 or bf16, one
-          (hl, wl) map per query (zero-size maps: a pooled-away level);
+          (hl, wl) map per query (zero-size maps: a pooled-away level),
+          or int8 with its (Tl, N, h1) f32 row scales (quantize_volume);
           its base-target indices; its pyramid index l (coords / 2^l)
   coords  (T, N, h1, w1, 2) f32 base coords, (x, y), in level-0 pixels
-  out     (N, h1, w1, C) in the volumes' type, C = 81 x the table's
-          targets, channels (level, target, dy-major window): the
-          concat=True contract of models.corr.corr_lookup and the matrix
-          the fused convc1 reads
+  out     (N, h1, w1, C) in the unquantized levels' type (they share
+          one; bf16 for int8 levels only: the type torch.cat gives the
+          per-level lookups), C = 81 x the table's targets, channels
+          (level, target, dy-major window): the concat=True contract of
+          models.corr.corr_lookup and the matrix the fused convc1 reads
 
 The backward launch reads the cotangent of `out` (rows of C channels at
 any row stride), adds every query's patch contribution to one f32 dVol
@@ -28,9 +29,13 @@ passes the volumes through as a zero-size token that every lookup takes
 as its differentiable input, so it runs after all of them and hands the
 summed buffers to the volumes' producer once per backward pass.
 
-The one-level entries (corr_lookup_level, lookup_bwd_cuda) are the same
-kernels and the same autograd structure with a one-level table and
-(Q, hl, wl) volumes, (Q, 2) coords at the level's scale, (Q, 81) taps.
+A table with an int8 level has no backward (inference only, as the JAX
+package's lookup_level_slab_q8): under autograd it raises.
+
+The one-level entries (corr_lookup_level, lookup_bwd_cuda,
+corr_lookup_level_q8) are the same kernels and the same autograd
+structure with a one-level table and (Q, hl, wl) volumes, (Q, 2) coords
+at the level's scale, (Q, 81) taps.
 
 The wrappers take the plain versions only for tensors on the CPU, through
 the same autograd structure; for CUDA tensors they launch the kernels or
@@ -48,7 +53,6 @@ from bflow_tpu_torch.ops.sampler import bilinear_sample
 
 NAME = "corr_lookup_fwd"
 BWD_NAME = "corr_lookup_bwd"
-Q8_NAME = "corr_lookup_q8"
 MAX_PATCH = 16  # 2r+2 <= 16, the TPU kernel's limit as well
 # csrc/corr_lookup_table.cuh
 MAX_LEVELS = 8
@@ -58,9 +62,14 @@ MAX_TARGETS = 255
 # kernel launches since the last reset (kernels.reset_launch_counts)
 launches = 0
 bwd_launches = 0
-q8_launches = 0
 
 _DTYPES = {torch.float32: "f32", torch.bfloat16: "bf16"}
+# csrc/corr_lookup_table.cuh: LevelType
+_LEVEL_TYPES = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
+_Q8_INFERENCE_ONLY = (
+    "the int8 lookup (lookup_method='pallas_q8') is inference only: it "
+    "has no gradient. Run it under torch.no_grad() or test_mode=True, or "
+    "train with lookup_method='pallas'")
 
 
 def window_offsets(radius: int, device=None,
@@ -107,11 +116,22 @@ def corr_lookup_level_bwd_plain(vol: torch.Tensor, coords: torch.Tensor,
 
 class TableLevel(NamedTuple):
     """One row of the level table: a pyramid level's volume
-    (Tl, N, h1, w1, hl, wl), its base-target indices (Tl of them) and its
-    pyramid index, which scales the base coords by 2^-level."""
+    (Tl, N, h1, w1, hl, wl), its base-target indices (Tl of them), its
+    pyramid index, which scales the base coords by 2^-level, and for an
+    int8 volume its (Tl, N, h1) f32 scale per query row (quantize_volume;
+    None for f32 and bf16 volumes)."""
     vol: torch.Tensor
     targets: Tuple[int, ...]
     level: int
+    scale: Optional[torch.Tensor] = None
+
+
+def _out_dtype(table: Sequence[TableLevel]) -> torch.dtype:
+    """The all-level lookup's output type: the unquantized levels' type,
+    bf16 for a table of int8 levels only (an int8 level's taps are bf16):
+    the type torch.cat gives the per-level lookups."""
+    return next((lv.vol.dtype for lv in table if lv.vol.dtype != torch.int8),
+                torch.bfloat16)
 
 
 def _level_coords(coords: torch.Tensor, lv: TableLevel) -> torch.Tensor:
@@ -131,15 +151,22 @@ def corr_lookup_pyramid_plain(table: Sequence[TableLevel],
                               coords: torch.Tensor,
                               radius: int) -> torch.Tensor:
     """The all-level lookup as plain PyTorch: per level the index and
-    divide of the base coords, the gather lookup, and the (level, target,
-    window) channel order -> (N, h1, w1, C) in the volumes' type."""
+    divide of the base coords, the gather lookup (int8 levels:
+    corr_lookup_level_q8_plain), and the (level, target, window) channel
+    order -> (N, h1, w1, C) in the output type (_out_dtype)."""
     _, N, h1, w1, _ = coords.shape
+    dtype = _out_dtype(table)
     parts = []
     for lv in table:
-        feat = corr_lookup_level_plain(_level_maps(lv),
-                                       _level_coords(coords, lv), radius)
+        if lv.vol.dtype == torch.int8:
+            feat = corr_lookup_level_q8_plain(
+                _level_maps(lv), lv.scale, _level_coords(coords, lv), radius)
+        else:
+            feat = corr_lookup_level_plain(_level_maps(lv),
+                                           _level_coords(coords, lv), radius)
         parts.append(feat.reshape(len(lv.targets), N, h1, w1, -1)
-                     .permute(1, 2, 3, 0, 4).reshape(N, h1, w1, -1))
+                     .permute(1, 2, 3, 0, 4).reshape(N, h1, w1, -1)
+                     .to(dtype))
     return torch.cat(parts, dim=-1)
 
 
@@ -156,7 +183,9 @@ def corr_lookup_pyramid_bwd_plain(table: Sequence[TableLevel],
     to dvols[i] (an f32 buffer of level i's volume shape; dvols may be
     None). Returns dcoords for the base coords (T, N, h1, w1, 2) f32, each
     target's level contributions scaled by 2^-l and summed in level order
-    from zero, or None without need_coords."""
+    from zero, or None without need_coords. An int8 level raises: it has
+    no backward."""
+    _refuse_int8_backward(table)
     _, N, h1, w1, _ = coords.shape
     win2 = (2 * radius + 1) ** 2
     dcoords = torch.zeros_like(coords) if need_coords else None
@@ -181,10 +210,19 @@ def corr_lookup_pyramid_bwd_plain(table: Sequence[TableLevel],
 # the CUDA kernels
 
 
+def _refuse_int8_backward(table: Sequence[TableLevel]) -> None:
+    if any(lv.vol.dtype == torch.int8 for lv in table):
+        raise ValueError("a table with an int8 level has no backward: "
+                         + _Q8_INFERENCE_ONLY)
+
+
 class _LevelDesc(ctypes.Structure):
+    """csrc/corr_lookup_table.cuh: LevelDesc."""
     _fields_ = [("vol", ctypes.c_void_p), ("dvol", ctypes.c_void_p),
+                ("row_scale", ctypes.c_void_p),
                 ("hl", ctypes.c_int), ("wl", ctypes.c_int),
-                ("n_targets", ctypes.c_int), ("scale", ctypes.c_float)]
+                ("n_targets", ctypes.c_int), ("scale", ctypes.c_float),
+                ("type", ctypes.c_int), ("pad", ctypes.c_int)]
 
 
 class _LookupTable(ctypes.Structure):
@@ -194,7 +232,7 @@ class _LookupTable(ctypes.Structure):
                 ("slot_k", ctypes.c_ubyte * MAX_SLOTS),
                 ("slot_target", ctypes.c_ubyte * MAX_SLOTS),
                 ("n_slots", ctypes.c_int), ("n_targets", ctypes.c_int),
-                ("radius", ctypes.c_int), ("pad", ctypes.c_int),
+                ("radius", ctypes.c_int), ("w1", ctypes.c_int),
                 ("queries", ctypes.c_longlong), ("ld", ctypes.c_longlong)]
 
 
@@ -222,7 +260,7 @@ def _check_table(table: Sequence[TableLevel], coords: torch.Tensor,
         raise ValueError(f"{len(table)} levels, {T} targets: the kernels "
                          f"take <= {MAX_LEVELS} levels, <= {MAX_TARGETS} "
                          f"targets and <= {MAX_SLOTS} (level, target) pairs")
-    dtype = table[0].vol.dtype
+    dtype = _out_dtype(table)
     for lv in table:
         v = lv.vol
         if v.dim() != 6 or tuple(v.shape[:4]) != (len(lv.targets), N, h1,
@@ -230,9 +268,14 @@ def _check_table(table: Sequence[TableLevel], coords: torch.Tensor,
             raise ValueError(f"level {lv.level}: volume {tuple(v.shape)} "
                              f"for {len(lv.targets)} targets and queries "
                              f"{(N, h1, w1)}")
-        if v.dtype != dtype or dtype not in _DTYPES:
-            raise TypeError(f"volumes must share one of {tuple(_DTYPES)}, "
-                            f"got {v.dtype}")
+        if v.dtype == torch.int8:
+            _check_row_scale(lv, coords)
+        elif v.dtype != dtype or dtype not in _DTYPES:
+            raise TypeError(f"unquantized volumes must share one of "
+                            f"{tuple(_DTYPES)}, got {v.dtype} and {dtype}")
+        elif lv.scale is not None:
+            raise ValueError(f"level {lv.level}: a row scale belongs to an "
+                             f"int8 volume, not {v.dtype}")
         if v.device != coords.device:
             raise ValueError(f"volume on {v.device}, coords on "
                              f"{coords.device}")
@@ -244,6 +287,29 @@ def _check_table(table: Sequence[TableLevel], coords: torch.Tensor,
             raise ValueError(f"level index {lv.level}")
 
 
+def _check_row_scale(lv: TableLevel, coords: torch.Tensor) -> None:
+    """An int8 level's scale: (Tl, N, h1) f32, contiguous, beside the
+    coords; and a map to look up (levels that small stay unquantized)."""
+    Tl, N, h1 = lv.vol.shape[:3]
+    s = lv.scale
+    if s is None:
+        raise ValueError(f"level {lv.level}: an int8 volume needs its row "
+                         f"scale (quantize_volume)")
+    if s.dtype != torch.float32:
+        raise TypeError(f"level {lv.level}: row scale must be float32, got "
+                        f"{s.dtype}")
+    if tuple(s.shape) != (Tl, N, h1) or not s.is_contiguous():
+        raise ValueError(f"level {lv.level}: row scale {tuple(s.shape)}, "
+                         f"want contiguous {(Tl, N, h1)}")
+    if s.device != coords.device:
+        raise ValueError(f"row scale on {s.device}, coords on "
+                         f"{coords.device}")
+    if lv.vol.shape[4] == 0 or lv.vol.shape[5] == 0:
+        raise ValueError(f"level {lv.level}: empty int8 map "
+                         f"{tuple(lv.vol.shape)}: levels that small stay "
+                         f"unquantized")
+
+
 def _table_struct(table: Sequence[TableLevel], coords: torch.Tensor,
                   radius: int, ld: int, dvols=None) -> _LookupTable:
     tab = _LookupTable()
@@ -252,6 +318,8 @@ def _table_struct(table: Sequence[TableLevel], coords: torch.Tensor,
         d = tab.level[i]
         d.vol = lv.vol.data_ptr()
         d.dvol = None if dvols is None else dvols[i].data_ptr()
+        d.row_scale = None if lv.scale is None else lv.scale.data_ptr()
+        d.type = _LEVEL_TYPES[lv.vol.dtype]
         d.hl, d.wl = lv.vol.shape[-2:]
         d.n_targets = len(lv.targets)
         d.scale = 2.0 ** -lv.level  # exact in f32 for level < 64
@@ -261,6 +329,7 @@ def _table_struct(table: Sequence[TableLevel], coords: torch.Tensor,
     tab.n_slots = s
     tab.n_targets = coords.shape[0]
     tab.radius = radius
+    tab.w1 = coords.shape[3]
     tab.queries = coords.shape[1] * coords.shape[2] * coords.shape[3]
     tab.ld = ld
     return tab
@@ -273,10 +342,6 @@ _ARGTYPES = {
     # table* (dvol accumulators inside), coords, g, dcoords, stream
     BWD_NAME: [ctypes.POINTER(_LookupTable), ctypes.c_void_p,
                ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p],
-    # vol, scale, coords, out, n_query, hl, wl, radius, w1, stream
-    Q8_NAME: [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-              ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int, ctypes.c_int,
-              ctypes.c_int, ctypes.c_int, ctypes.c_void_p],
 }
 
 
@@ -305,7 +370,7 @@ def _rows(g: torch.Tensor, C: int):
 def lookup_pyramid_cuda(table: Sequence[TableLevel], coords: torch.Tensor,
                         radius: int) -> torch.Tensor:
     """One launch of the forward kernel over every level of the table ->
-    (N, h1, w1, C), the layout of corr_lookup_pyramid_plain."""
+    (N, h1, w1, C), the layout and type of corr_lookup_pyramid_plain."""
     global launches
     _check_table(table, coords, radius)
     if not all(lv.vol.is_contiguous() for lv in table):
@@ -313,7 +378,7 @@ def lookup_pyramid_cuda(table: Sequence[TableLevel], coords: torch.Tensor,
     coords = coords.contiguous()
     _, N, h1, w1, _ = coords.shape
     C = sum(len(lv.targets) for lv in table) * (2 * radius + 1) ** 2
-    dtype = table[0].vol.dtype
+    dtype = _out_dtype(table)
     out = torch.empty((N, h1, w1, C), dtype=dtype, device=coords.device)
     tab = _table_struct(table, coords, radius, C)
     _launch(NAME, dtype, coords.device, ctypes.byref(tab),
@@ -330,8 +395,10 @@ def lookup_pyramid_bwd_cuda(table: Sequence[TableLevel],
     """One launch of the backward kernel over every level of the table:
     adds each level's dvol (rounded to the volume's type per query cell)
     into the f32 accumulators dvols (or none), and returns dcoords for the
-    base coords (T, N, h1, w1, 2) f32 (or None)."""
+    base coords (T, N, h1, w1, 2) f32 (or None). A table with an int8
+    level raises before any launch."""
     global bwd_launches
+    _refuse_int8_backward(table)
     _check_table(table, coords, radius)
     if not all(lv.vol.is_contiguous() for lv in table):
         raise ValueError("volumes must be contiguous")
@@ -481,11 +548,18 @@ def corr_lookup_pyramid(table: Sequence[TableLevel], coords: torch.Tensor,
     tensors. When the volumes need gradients, dVol goes through ``sink``,
     which is then required: one per pyramid, serving the table's volumes
     in table order, so that every iteration's lookups share its
-    accumulators."""
+    accumulators. A table with an int8 level is inference only: under
+    autograd it raises."""
     table = tuple(table)
     _check_table(table, coords, radius)
     vol_grad = any(lv.vol.requires_grad for lv in table)
-    if not torch.is_grad_enabled() or not (vol_grad or coords.requires_grad):
+    needs_grad = torch.is_grad_enabled() and (
+        vol_grad or coords.requires_grad
+        or any(lv.scale is not None and lv.scale.requires_grad
+               for lv in table))
+    if needs_grad and any(lv.vol.dtype == torch.int8 for lv in table):
+        raise RuntimeError(_Q8_INFERENCE_ONLY)
+    if not needs_grad:
         return _pyramid_fwd(table, coords.detach(), radius)
     token, acc = coords.new_empty(0), None
     if vol_grad:
@@ -494,8 +568,7 @@ def corr_lookup_pyramid(table: Sequence[TableLevel], coords: torch.Tensor,
                 "volumes that need gradients take the pyramid's VolumeSink "
                 "(models.corr.CorrPyramid carries one)")
         token, acc = sink.token([lv.vol for lv in table])
-    plain = tuple(TableLevel(lv.vol.detach(), lv.targets, lv.level)
-                  for lv in table)
+    plain = tuple(lv._replace(vol=lv.vol.detach()) for lv in table)
     return _PyramidLookupFn.apply(token, coords, acc, plain, radius)
 
 
@@ -616,16 +689,13 @@ def corr_lookup_level_q8(vol: torch.Tensor, scale: torch.Tensor,
     """(Q, hl, wl) int8 volume, per-row scale (Q / w1 values, e.g. the
     (Tl, N, h1) scale of quantize_volume), (Q, 2) coords -> (Q, (2r+1)^2)
     bf16 taps. Forward only, as the JAX package's lookup_level_slab_q8:
-    under autograd it raises. CUDA tensors go through the kernel, CPU
-    tensors through corr_lookup_level_q8_plain."""
-    global q8_launches
+    under autograd it raises. CUDA tensors go through the forward kernel
+    with a one-level int8 table, CPU tensors through
+    corr_lookup_level_q8_plain."""
     _check_q8(vol, scale, coords, radius)
     if torch.is_grad_enabled() and (coords.requires_grad
                                     or scale.requires_grad):
-        raise RuntimeError(
-            "the int8 lookup (lookup_method='pallas_q8') is inference "
-            "only: it has no gradient. Run it under torch.no_grad() or "
-            "test_mode=True, or train with lookup_method='pallas'")
+        raise RuntimeError(_Q8_INFERENCE_ONLY)
     if vol.device.type == "cpu":
         return corr_lookup_level_q8_plain(vol, scale, coords, radius)
     if vol.device.type != "cuda":
@@ -633,12 +703,11 @@ def corr_lookup_level_q8(vol: torch.Tensor, scale: torch.Tensor,
     if not (vol.is_contiguous() and scale.is_contiguous()
             and coords.is_contiguous()):
         raise ValueError("vol, scale and coords must be contiguous")
+    # one target, one image, rows of Q / rows queries: one scale a row
     Q, hl, wl = vol.shape
-    win = 2 * radius + 1
-    out = torch.empty((Q, win * win), dtype=torch.bfloat16,
-                      device=vol.device)
-    _launch(Q8_NAME, torch.bfloat16, vol.device, vol.data_ptr(),
-            scale.data_ptr(), coords.data_ptr(), out.data_ptr(), Q, hl, wl,
-            radius, Q // scale.numel())
-    q8_launches += 1
-    return out
+    rows = scale.numel()
+    table = (TableLevel(vol.reshape(1, 1, rows, Q // rows, hl, wl), (0,), 0,
+                        scale.reshape(1, 1, rows)),)
+    out = lookup_pyramid_cuda(table, coords.reshape(1, 1, rows, Q // rows, 2),
+                              radius)
+    return out.reshape(Q, -1)

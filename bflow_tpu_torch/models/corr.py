@@ -16,9 +16,10 @@ Lookup methods ('auto' and 'pallas' are the lookup kernel, which is what
                 (its plain version on the CPU); under autograd the levels'
                 dVol accumulates in one buffer per level for all of a
                 pyramid's lookups (kernels.corr_lookup.VolumeSink)
-  pallas_q8     the int8 kernel on the levels whose row count, padded to
-                16 as in the JAX package, is >= 32; the others as 'pallas'
-                (inference only)
+  pallas_q8     the same kernel and launch, with the levels whose row
+                count, padded to 16 as in the JAX package, is >= 32 held
+                as int8 volumes with per-row scales in its level table
+                (their taps bf16; inference only)
   gather        the plain lookup everywhere (the JAX package's oracle)
   onehot        the JAX package's one-hot matmul formulation, f32 output
 With onehot_from_level >= 0, the kernel methods send the levels from that
@@ -36,7 +37,6 @@ from bflow_tpu_torch.kernels.corr_lookup import (
     TableLevel,
     VolumeSink,
     corr_lookup_level_plain,
-    corr_lookup_level_q8,
     corr_lookup_pyramid,
     quantize_volume,
 )
@@ -218,10 +218,12 @@ def corr_lookup(
       onehot_from_level: with a kernel method, levels >= this index (when
         >= 0) take the one-hot lookup instead.
 
-    With a kernel method, the levels that neither pallas_q8 quantizes nor
-    onehot_from_level sends to the one-hot lookup (a contiguous run of
-    levels) go through one launch of the lookup kernel, which reads the
-    base coords and writes their channels of the concatenated map.
+    With a kernel method, the levels that onehot_from_level does not send
+    to the one-hot lookup (a contiguous run of levels, pallas_q8's int8
+    levels among them) go through one launch of the lookup kernel, which
+    reads the base coords and writes their channels of the concatenated
+    map; with no level sent elsewhere, that map is the result. Per level
+    (concat=False), an int8 level's lookup is bf16, as in the JAX package.
     """
     if method not in METHODS:
         raise NotImplementedError(
@@ -236,21 +238,25 @@ def corr_lookup(
     for lvl, (target_idx, vol) in enumerate(pyramid):
         onehot_here = (method in KERNEL_METHODS
                        and 0 <= onehot_from_level <= lvl)
-        if method in KERNEL_METHODS and not onehot_here and not isinstance(
-                vol, tuple):
-            table.append(TableLevel(vol, tuple(target_idx), lvl))
+        if method in KERNEL_METHODS and not onehot_here:
+            if isinstance(vol, tuple):  # (int8 volume, per-row scale)
+                table.append(TableLevel(vol[0], tuple(target_idx), lvl,
+                                        vol[1]))
+            else:
+                table.append(TableLevel(vol, tuple(target_idx), lvl))
             outs.append(None)
             continue
+        if isinstance(vol, tuple):
+            raise ValueError(
+                f"level {lvl} is an int8 volume (build_pyramid_for_method "
+                f"with 'pallas_q8'): method {method!r} and "
+                f"onehot_from_level={onehot_from_level} do not look it up")
         c = coords[list(target_idx)] / (2.0 ** lvl)
         q = len(target_idx) * N * h1 * w1
         if method == "onehot" or onehot_here:
             feat = lookup_level_onehot(vol, c, radius, precision)
             if onehot_here:
                 feat = feat.to(vol.dtype)
-        elif isinstance(vol, tuple):  # (int8 volume, per-row scale)
-            vq, scale = vol
-            feat = corr_lookup_level_q8(vq.reshape(q, *vq.shape[-2:]),
-                                        scale, c.reshape(q, 2), radius)
         else:  # gather
             hl, wl = vol.shape[-2:]
             feat = corr_lookup_level_plain(vol.reshape(q, hl, wl),
@@ -268,6 +274,8 @@ def corr_lookup(
             if feat is None:
                 tl = len(pyramid[lvl][0])
                 outs[lvl] = kviews[s:s + tl]
+                if isinstance(pyramid[lvl][1], tuple):  # exact: bf16 taps
+                    outs[lvl] = outs[lvl].to(torch.bfloat16)
                 s += tl
     if not concat:
         return outs

@@ -17,8 +17,10 @@ toolkit (nvcc). Phases, each printing JSON lines:
                   iterations accumulated into one f32 dVol buffer per
                   level at the flagship (bf16) and DSEC training (f32)
                   shapes, twice, bitwise equal, and the one-level entries;
-                  (3c) the int8 lookup at the two levels pallas_q8
-                  quantizes (bit-equal), and the stem and conv3x3 kernels
+                  (3c) the same forward over pallas_q8's tables (int8
+                  levels 0-1 beside bf16 levels 2-3 in one launch, and the
+                  int8 levels alone; bit-equal, each int8 level against
+                  the one-level int8 entry), and the stem and conv3x3 kernels
                   at every flagship shape their gates pass, on
                   channels-last and NCHW-contiguous inputs, with the
                   wrapper's layout copies and prepared weights counted and
@@ -30,9 +32,11 @@ toolkit (nvcc). Phases, each printing JSON lines:
                   of one forward (device calls, direct_copy);
                   (4b, opt_forward) the same with pallas_q8, pallas_stem and
                   pallas_conv, launches held to the count the copied gates
-                  give, layout copies to one per conv whose channel count
-                  is not a multiple of 8; (opt_vs_default) the two paths'
-                  walls again, 12 forwards each taken in turns
+                  give (one all-level lookup launch per iteration, int8
+                  levels included), layout copies to one per conv whose
+                  channel count is not a multiple of 8; (opt_vs_default)
+                  the two paths' walls again, 12 forwards each taken in
+                  turns
   5. parity       kernel path vs plain path on the same seeded weights;
                   (5b, opt_parity) the opt-in path vs its plain twins, and
                   vs the default path (recorded)
@@ -54,7 +58,8 @@ DIR also writes their chrome traces into DIR.
 kernels at every flagship conv shape beside the one the tile plan picks,
 and stops. --lookup-probe runs phases 1 and 2, then times the all-level
 lookup kernels' probe variants (patch loads, stores, accumulator read or
-cotangents taken out) at the flagship shapes, and stops.
+cotangents taken out) at the flagship shapes, the forward's also over
+pallas_q8's tables, and stops.
 """
 
 from __future__ import annotations
@@ -201,13 +206,19 @@ def _table_coord_bytes(table, coords) -> int:
 
 def pyramid_bound_bytes(table, coords, radius: int) -> int:
     """Bytes the all-level lookup must move for these inputs: per (level,
-    target) slot its queries' in-map patch cells and their outputs, and the
-    base coords once per target."""
+    target) slot its queries' in-map patch cells in the level's type (one
+    byte for int8) and their outputs in the output type, an int8 level's
+    f32 row scales once each, and the base coords once per target."""
     taps = (2 * radius + 1) ** 2
-    item = table[0].vol.element_size()
-    slots = sum(patch_cells(*level_views(lv, coords), radius) * item
-                + lv.vol.shape[:4].numel() * taps * item for lv in table)
-    return slots + _table_coord_bytes(table, coords)
+    out_item = torch.empty(0, dtype=klookup._out_dtype(table)).element_size()
+    total = 0
+    for lv in table:
+        total += (patch_cells(*level_views(lv, coords), radius)
+                  * lv.vol.element_size()
+                  + lv.vol.shape[:4].numel() * taps * out_item)
+        if lv.scale is not None:
+            total += lv.scale.numel() * 4
+    return total + _table_coord_bytes(table, coords)
 
 
 def _sample_grid(vol: torch.Tensor, coords: torch.Tensor, radius: int):
@@ -342,31 +353,60 @@ def level_views(lv, coords):
     return klookup._level_maps(lv), klookup._level_coords(coords, lv)
 
 
+def _table_record(table, coords, timing):
+    """The all-level forward over one table vs its plain twin (exact) and
+    each level's channels vs its one-level entry (corr_lookup_level_q8
+    for int8 levels); with timing, its time, plain time and bound."""
+    got = klookup.lookup_pyramid_cuda(table, coords, RADIUS)
+    torch.cuda.synchronize()
+    want = klookup.corr_lookup_pyramid_plain(table, coords, RADIUS)
+    check(got.dtype == want.dtype == klookup._out_dtype(table)
+          and got.shape == want.shape,
+          f"table lookup output {got.dtype} {tuple(got.shape)}")
+    err = (got.float() - want.float()).abs().max().item()
+    n, h1, w1 = coords.shape[1:4]
+    per_level, s = True, 0
+    for lv in table:
+        tl = len(lv.targets)
+        vol, c = level_views(lv, coords)
+        one = (klookup.corr_lookup_level_q8(vol, lv.scale, c, RADIUS)
+               if lv.scale is not None
+               else klookup.corr_lookup_level(vol, c, RADIUS))
+        mine = got.reshape(n, h1, w1, -1, 81)[..., s:s + tl, :]
+        per_level &= bool(torch.equal(
+            one.to(got.dtype), mine.permute(3, 0, 1, 2, 4).reshape(-1, 81)))
+        s += tl
+    rec = {"levels": [[lv.level, str(lv.vol.dtype).replace("torch.", "")]
+                      for lv in table],
+           "queries": [n, h1, w1],
+           "items": sum(lv.vol.shape[:4].numel() for lv in table),
+           "dtype": str(got.dtype).replace("torch.", ""), "max_abs_err": err,
+           "max_abs_ref": want.float().abs().max().item(),
+           "per_level_equal": per_level, "ok": err == 0.0 and per_level}
+    if timing:
+        bound_bytes = pyramid_bound_bytes(table, coords, RADIUS)
+        rec.update(
+            ms=time_ms(lambda: klookup.lookup_pyramid_cuda(table, coords,
+                                                           RADIUS)),
+            plain_ms=time_ms(lambda: klookup.corr_lookup_pyramid_plain(
+                table, coords, RADIUS)),
+            bound_bytes=bound_bytes,
+            bound_ms=bound_bytes / HBM_BYTES_PER_S * 1e3,
+            library_ms=None,
+            library_note="no single PyTorch call samples an int8 volume "
+                         "with per-row scales (grid_sample takes float "
+                         "types only)")
+        rec["x_bound"] = rec["ms"] / rec["bound_ms"]
+    return rec
+
+
 def check_lookup_pyramid(n, h1, w1, dtype, seed, timing=True):
     """The all-level forward kernel (one launch) vs its plain twin, exact;
     each level's channels vs the one-level entry; returns the phase-3
     record with the time per iteration, the bound summed over levels and
     grid_sample summed over levels."""
     table, coords = pyramid_inputs(n, h1, w1, dtype, seed)
-    got = klookup.lookup_pyramid_cuda(table, coords, RADIUS)
-    torch.cuda.synchronize()
-    want = klookup.corr_lookup_pyramid_plain(table, coords, RADIUS)
-    check(got.dtype == want.dtype == dtype and got.shape == want.shape,
-          f"pyramid lookup output {got.dtype} {tuple(got.shape)}")
-    err = (got.float() - want.float()).abs().max().item()
-    per_level, s = True, 0
-    for lv in table:
-        tl = len(lv.targets)
-        one = klookup.corr_lookup_level(*level_views(lv, coords), RADIUS)
-        mine = got.reshape(n, h1, w1, -1, 81)[..., s:s + tl, :]
-        per_level &= bool(torch.equal(
-            one, mine.permute(3, 0, 1, 2, 4).reshape(-1, 81)))
-        s += tl
-    rec = {"queries": [n, h1, w1], "levels": len(table),
-           "items": sum(lv.vol.shape[:4].numel() for lv in table),
-           "dtype": str(dtype).replace("torch.", ""), "max_abs_err": err,
-           "max_abs_ref": want.float().abs().max().item(),
-           "per_level_equal": per_level, "ok": err == 0.0 and per_level}
+    rec = _table_record(table, coords, timing=False)
     if not timing:
         return rec
     bound_bytes = pyramid_bound_bytes(table, coords, RADIUS)
@@ -516,9 +556,12 @@ def lookup_probe(seed: int) -> None:
     variants (the kernel's code with the volume patch's loads, the stores,
     the accumulator's read or the cotangents' loads taken out; their
     results are wrong by design and not read) at the flagship shapes, L2
-    flushed before each launch, beside the kernel through its wrapper.
-    Each probe's time is printed with its difference from the whole
-    kernel's (probe 0, the same code)."""
+    flushed before each launch, beside the kernel through its wrapper; the
+    forward's over the default table (bf16 levels 0-3) and over
+    pallas_q8's tables (int8 levels 0-1 beside bf16 levels 2-3, and the
+    int8 levels alone: the kernel's int8 instantiation). Each probe's time
+    is printed with its difference from the whole kernel's (probe 0, the
+    same code)."""
     ptr = ctypes.POINTER(klookup._LookupTable)
     vp = ctypes.c_void_p
     fwd = kbuild.function(klookup.NAME, "corr_lookup_fwd_probe_bf16",
@@ -527,16 +570,21 @@ def lookup_probe(seed: int) -> None:
                           [ptr, vp, vp, vp, ctypes.c_int, vp])
     table, coords = pyramid_inputs(1, H1, W1, torch.bfloat16, seed)
     dev = coords.device
+    mixed = q8_table(table)
+    for what, tbl in (("bf16 levels 0-3", table),
+                      ("int8 levels 0-1, bf16 levels 2-3", mixed),
+                      ("int8 levels 0-1", q8_levels(mixed))):
+        out = klookup.lookup_pyramid_cuda(tbl, coords, RADIUS)
+        tab = klookup._table_struct(tbl, coords, RADIUS, out.shape[-1])
+        ms = {"wrapper": time_ms(lambda: klookup.lookup_pyramid_cuda(
+            tbl, coords, RADIUS))}
+        for name, bits in FWD_PROBES.items():
+            ms[name] = time_ms(lambda: kbuild.launch(
+                fwd, dev, ctypes.byref(tab), coords.data_ptr(),
+                out.data_ptr(), bits))
+        emit("lookup_probe", kernel=klookup.NAME, table=what, ms=ms,
+             saved_ms={k: ms["kernel"] - v for k, v in ms.items()})
     out = klookup.lookup_pyramid_cuda(table, coords, RADIUS)
-    tab = klookup._table_struct(table, coords, RADIUS, out.shape[-1])
-    ms = {"wrapper": time_ms(lambda: klookup.lookup_pyramid_cuda(
-        table, coords, RADIUS))}
-    for name, bits in FWD_PROBES.items():
-        ms[name] = time_ms(lambda: kbuild.launch(
-            fwd, dev, ctypes.byref(tab), coords.data_ptr(), out.data_ptr(),
-            bits))
-    emit("lookup_probe", kernel=klookup.NAME, ms=ms,
-         saved_ms={k: ms["kernel"] - v for k, v in ms.items()})
     gen = torch.Generator(device="cuda").manual_seed(seed + 100)
     g = torch.randn(out.shape, generator=gen, device="cuda").to(out.dtype)
     acc = [torch.zeros(lv.vol.shape, device="cuda") for lv in table]
@@ -657,7 +705,6 @@ def profile_run(fn, unprofiled_ms: float, out_dir, name: str,
             "device_idle_share": max(0.0, 1 - kernel_ms / unprofiled_ms),
             "lookup_fwd": share(klookup.NAME),
             "lookup_bwd": share(klookup.BWD_NAME),
-            "lookup_q8": share(klookup.Q8_NAME),
             "conv_kernels": share("conv_igemm"),
             "direct_copy": share("direct_copy"),
             "memset_and_fill": share("Memset", "memset", "FillFunctor"),
@@ -763,10 +810,29 @@ def train_parity(cfg, batch, seed, damp: bool):
 # phase 3c: the opt-in kernels (int8 lookup, stem conv, conv3x3)
 
 
-def check_q8_level(Tl, hl, wl, seed, timing=True):
-    """The int8 lookup kernel vs its plain twin at one level shape, on a
-    bf16 volume quantized as the model quantizes it (one scale per
-    (target, batch, query row)); returns the phase-3c record."""
+def q8_table(table):
+    """A bf16 level table as pallas_q8 holds it: the levels whose row
+    count the copied gate quantizes as int8 volumes with their row
+    scales (quantize_volume), the others as they are."""
+    out = []
+    for lv in table:
+        if quantizes(lv.vol.shape[4]):
+            vq, scale = klookup.quantize_volume(lv.vol)
+            lv = klookup.TableLevel(vq, lv.targets, lv.level, scale)
+        out.append(lv)
+    return out
+
+
+def q8_levels(table):
+    """The int8 levels of a table: row 2's own table."""
+    return [lv for lv in table if lv.vol.dtype == torch.int8]
+
+
+def check_q8_level(Tl, hl, wl, seed):
+    """The one-level int8 entry (the forward kernel with a one-level int8
+    table) vs its plain twin at one level shape, on a bf16 volume
+    quantized as the model quantizes it (one scale per (target, batch,
+    query row)), bit-equal; returns the record."""
     vol, coords = level_inputs(Tl, hl, wl, torch.bfloat16, seed)
     vq, scale = klookup.quantize_volume(vol.reshape(Tl, 1, H1, W1, hl, wl))
     vq = vq.reshape(vol.shape)
@@ -776,29 +842,30 @@ def check_q8_level(Tl, hl, wl, seed, timing=True):
     check(got.dtype == want.dtype == torch.bfloat16
           and got.shape == want.shape, f"q8 output {got.dtype} {got.shape}")
     err = (got.float() - want.float()).abs().max().item()
-    ref = want.float().abs().max().item()
-    tol = TOL[torch.bfloat16]
-    rec = {"Tl": Tl, "hl": hl, "wl": wl, "queries": vol.shape[0],
-           "dtype": "int8", "max_abs_err": err, "max_abs_ref": ref,
-           "tol_rel": tol, "ok": err <= tol * ref}
-    if not timing:
-        return rec
-    # bytes it must move: the int8 part of each query's patch inside the
-    # map, one f32 scale per query row, the coords and the bf16 taps
-    Q, taps = vol.shape[0], (2 * RADIUS + 1) ** 2
-    bound_bytes = (patch_cells(vol, coords, RADIUS) + scale.numel() * 4
-                   + Q * 8 + Q * taps * 2)
-    rec.update(
-        ms=time_ms(lambda: klookup.corr_lookup_level_q8(vq, scale, coords,
-                                                        RADIUS)),
-        plain_ms=time_ms(lambda: klookup.corr_lookup_level_q8_plain(
-            vq, scale, coords, RADIUS)),
-        bound_bytes=bound_bytes,
-        bound_ms=bound_bytes / HBM_BYTES_PER_S * 1e3,
-        library_ms=None,
-        library_note="no single PyTorch call samples an int8 volume with "
-                     "per-row scales (grid_sample takes float types only)")
-    return rec
+    return {"Tl": Tl, "hl": hl, "wl": wl, "queries": vol.shape[0],
+            "dtype": "int8", "max_abs_err": err,
+            "max_abs_ref": want.float().abs().max().item(), "ok": err == 0.0}
+
+
+def check_q8_pyramid(n, h1, w1, seed, timing=True):
+    """Phase 3c, the lookup under pallas_q8: the all-level forward over
+    the opt-in table (int8 levels 0-1 beside bf16 levels 2-3 at the
+    flagship, one launch) and over its int8 levels alone (row 2's own
+    table), each exact against its plain twin and per level against the
+    one-level entries; with timing, also the bf16 levels alone (what the
+    opt-in path launched besides the int8 kernel before the int8 levels
+    joined the table). Returns (mixed record, int8-only record)."""
+    table, coords = pyramid_inputs(n, h1, w1, torch.bfloat16, seed)
+    mixed = q8_table(table)
+    check(any(lv.scale is not None for lv in mixed),
+          "no level of the table quantizes")
+    rec_mixed = _table_record(mixed, coords, timing)
+    rec_q8 = _table_record(q8_levels(mixed), coords, timing)
+    rest = [lv for lv in mixed if lv.scale is None]
+    if timing and rest:
+        rec_mixed["bf16_levels_alone_ms"] = time_ms(
+            lambda: klookup.lookup_pyramid_cuda(rest, coords, RADIUS))
+    return rec_mixed, rec_q8
 
 
 def flagship_convs(cfg, n=1, h=H, w=W, iters=ITERS):
@@ -866,15 +933,11 @@ def expected_launches(cfg, n=1, h=H, w=W, iters=ITERS):
     for row in flagship_convs(cfg, n, h, w, iters):
         if row["kernel"]:
             want[row["kernel"]] += row["per_forward"]
-    q8 = cfg.lookup_method == "pallas_q8"
-    table = False  # a level for the all-level kernel: one launch per iter.
-    for lvl in range(max(cfg.levels_per_target)):
-        onehot = 0 <= cfg.onehot_from_level <= lvl
-        if cfg.lookup_method in KERNEL_METHODS and not onehot:
-            if q8 and quantizes((h // 8) >> lvl):
-                want[klookup.Q8_NAME] += iters
-            else:
-                table = True
+    # a level for the all-level kernel (pallas_q8's int8 levels too): one
+    # launch per iteration
+    table = cfg.lookup_method in KERNEL_METHODS and any(
+        not 0 <= cfg.onehot_from_level <= lvl
+        for lvl in range(max(cfg.levels_per_target)))
     want[klookup.NAME] += iters * table
     return want
 
@@ -1024,22 +1087,17 @@ class plain_twins:
     phases; the port itself has no such switch)."""
 
     def __enter__(self):
-        from bflow_tpu_torch.models import corr as mcorr
-
         self._saved = [(kconv, "_fwd_cuda", kconv._fwd_cuda),
                        (kstem, "_fwd_cuda", kstem._fwd_cuda),
                        (klookup, "lookup_pyramid_cuda",
                         klookup.lookup_pyramid_cuda),
                        (klookup, "lookup_pyramid_bwd_cuda",
-                        klookup.lookup_pyramid_bwd_cuda),
-                       (mcorr, "corr_lookup_level_q8",
-                        mcorr.corr_lookup_level_q8)]
+                        klookup.lookup_pyramid_bwd_cuda)]
         kconv._fwd_cuda = conv_common.conv_plain
         kstem._fwd_cuda = conv_common.conv_plain
         klookup.lookup_pyramid_cuda = klookup.corr_lookup_pyramid_plain
         klookup.lookup_pyramid_bwd_cuda = (
             klookup.corr_lookup_pyramid_bwd_plain)
-        mcorr.corr_lookup_level_q8 = klookup.corr_lookup_level_q8_plain
         return self
 
     def __exit__(self, *exc):
@@ -1052,6 +1110,24 @@ def opt_in_config():
     return dataclasses.replace(bt.flagship_config(),
                                lookup_method="pallas_q8", pallas_stem=True,
                                pallas_conv=True)
+
+
+def lookup_fwd_resources(ptxas_log: str):
+    """Per instantiation of the lookup forward at the flagship radius, from
+    nvcc's -Xptxas -v log: (output type, int8 levels or not, probe) ->
+    registers and spill bytes."""
+    out = {}
+    pat = re.compile(
+        r"Compiling entry function '[^']*corr_lookup_fwd_kernelI"
+        r"(f|13__nv_bfloat16)Li4ELb([01])ELi(\d+)E[^']*'.*?"
+        r"(\d+) bytes spill stores, (\d+) bytes spill loads.*?"
+        r"Used (\d+) registers", re.S)
+    for m in pat.finditer(ptxas_log):
+        t, q8, probe, st, ld, regs = m.groups()
+        key = (f"{'f32' if t == 'f' else 'bf16'} "
+               f"{'int8 levels' if q8 == '1' else 'no int8'} probe{probe}")
+        out[key] = {"registers": int(regs), "spill_bytes": int(st) + int(ld)}
+    return out
 
 
 def conv_variant_resources(ptxas_log: str):
@@ -1135,7 +1211,9 @@ def main() -> int:
          kernels={k: {"seconds": v["seconds"], "ptxas": v["ptxas"][-900:]}
                   for k, v in report.items()},
          conv_variants={k: conv_variant_resources(report[k]["ptxas"])
-                        for k in (kstem.NAME, kconv.NAME)})
+                        for k in (kstem.NAME, kconv.NAME)},
+         lookup_fwd_variants=lookup_fwd_resources(
+             report[klookup.NAME]["ptxas"]))
 
     if args.conv_sweep or args.lookup_probe:
         if args.conv_sweep:
@@ -1178,18 +1256,20 @@ def main() -> int:
                  **rec)
             check(rec["ok"], f"one-level lookup backward disagrees: {rec}")
 
-    # 3c. the opt-in kernels at every flagship shape they take
+    # 3c. the opt-in kernels at every flagship shape they take: the lookup
+    # over pallas_q8's tables (int8 levels 0-1 beside bf16 levels 2-3, and
+    # the int8 levels alone), each int8 level through the one-level entry
     opt_cfg = opt_in_config()
-    per_q8 = []
+    q8_mixed, q8_only = check_q8_pyramid(1, H1, W1, args.seed)
+    for what, rec in (("int8 levels 0-1, bf16 levels 2-3", q8_mixed),
+                      ("int8 levels 0-1", q8_only)):
+        emit("kernel", name=klookup.NAME, table=what, **rec)
+        check(rec["ok"], f"all-level lookup over {what} disagrees: {rec}")
     for lvl, (Tl, hl, wl) in enumerate(LEVELS):
-        if not quantizes(hl):
-            continue
-        rec = check_q8_level(Tl, hl, wl, args.seed + lvl)
-        rec["level"] = lvl
-        emit("kernel", name=klookup.Q8_NAME, **rec)
-        check(rec["ok"] and rec["max_abs_err"] == 0.0,
-              f"int8 lookup kernel disagrees with its twin: {rec}")
-        per_q8.append(rec)
+        if quantizes(hl):
+            rec = check_q8_level(Tl, hl, wl, args.seed + lvl)
+            emit("kernel_one_level", name=klookup.NAME, level=lvl, **rec)
+            check(rec["ok"], f"one-level int8 lookup disagrees: {rec}")
     per_conv = {kconv.NAME: [], kstem.NAME: []}
     for i, row in enumerate(flagship_convs(opt_cfg)):
         if row["kernel"] is None:
@@ -1298,9 +1378,11 @@ def main() -> int:
          opt_in_over_default=turn_ms["opt_in"] / turn_ms["default"],
          phase_medians_ms={"default": ms, "opt_in": opt_ms})
     del default_model
-    emit("profile", path="opt_forward", **profile_run(
-        lambda: run_forward(model, voxel, images), opt_ms, args.profile,
-        "opt_forward"))
+    prof = profile_run(lambda: run_forward(model, voxel, images), opt_ms,
+                       args.profile, "opt_forward")
+    emit("profile", path="opt_forward", **prof)
+    check(prof["lookup_fwd"]["calls"] == ITERS,
+          f"profiled opt-in forward: {prof['lookup_fwd']} lookup launches")
     del model
 
     # 5. kernel path vs plain path on the card
@@ -1512,19 +1594,23 @@ def main() -> int:
         "per": "iteration, all four levels, flagship bf16",
         "train_f32": bwd_fields(per_pyr_bwd["train"]),
     }, {
-        "name": klookup.Q8_NAME,
+        "name": f"{klookup.NAME} (int8 levels)",
         "route": "cuda",
-        "source": "bflow_tpu_torch/csrc/corr_lookup_q8.cu",
+        "source": "bflow_tpu_torch/csrc/corr_lookup_fwd.cu",
         "replaces": "bflow_tpu/ops/pallas/corr_lookup_v3.py:238",
-        "variant": "quant=True (lookup_level_slab_q8, :794)",
-        "launches": opt_counts[klookup.Q8_NAME],
-        "max_abs_err": max(r["max_abs_err"] for r in per_q8),
-        "ms": sum(r["ms"] for r in per_q8),
-        "plain_ms": sum(r["plain_ms"] for r in per_q8),
-        "bound_ms": sum(r["bound_ms"] for r in per_q8),
+        "variant": "quant=True (lookup_level_slab_q8, :794): pallas_q8's "
+                   "int8 levels in the all-level kernel's table",
+        "launches": opt_counts[klookup.NAME],
+        "max_abs_err": max(q8_mixed["max_abs_err"], q8_only["max_abs_err"]),
+        "ms": q8_only["ms"],
+        "plain_ms": q8_only["plain_ms"],
+        "bound_ms": q8_only["bound_ms"],
         "bound_by": "bytes",
         "library_ms": None,
-        "library_note": per_q8[0]["library_note"],
+        "library_note": q8_only["library_note"],
+        "per": "iteration, the int8 levels 0-1 as one table launch, flagship",
+        "opt_in_table": {k: q8_mixed[k] for k in (
+            "ms", "plain_ms", "bound_ms", "x_bound", "bf16_levels_alone_ms")},
     }, conv_summary(kstem.NAME, "bflow_tpu/ops/pallas/stem_conv.py:114",
                     per_conv[kstem.NAME], opt_counts),
         conv_summary(kconv.NAME, "bflow_tpu/ops/pallas/conv3x3.py:69",

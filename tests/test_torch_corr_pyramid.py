@@ -402,6 +402,40 @@ def test_chip_smoke_lookup_bounds_count_coords_once_per_target(levels):
         12 * cells + 4 * taps + 8 * M * named + 8 * M * 5)
 
 
+@pytest.mark.parametrize("levels", [slice(None), slice(0, 2)])
+def test_chip_smoke_q8_bounds_count_each_level_type(levels):
+    """chip_smoke's forward bound over pallas_q8's tables (int8 levels
+    beside bf16 ones, and the int8 levels alone) against a count cell by
+    cell: per (level, target) slot the in-map cells of each query's
+    (2r+2)^2 patch in the level's type (1 byte int8, 2 bf16) and its 81
+    taps in the output type (bf16), each int8 level's f32 row scales once,
+    the base coords once per target the table names."""
+    import chip_smoke
+
+    # 34 query rows: levels 0 and 1 (34 and 17 rows) quantize
+    table, coords = chip_smoke.pyramid_inputs(1, 34, 4, torch.bfloat16, 16,
+                                              device="cpu")
+    table = chip_smoke.q8_table(table)[levels]
+    assert [lv.vol.dtype for lv in table][:2] == [torch.int8] * 2
+    cells = {torch.int8: 0, torch.bfloat16: 0}
+    taps = rows = 0
+    for lv in table:
+        maps, cl = klookup._level_maps(lv), klookup._level_coords(coords, lv)
+        hl, wl = maps.shape[1:]
+        for x, y in np.floor(cl.numpy()).astype(np.int64):
+            r_in = [r for r in range(y - R, y + R + 2) if 0 <= r < hl]
+            c_in = [q for q in range(x - R, x + R + 2) if 0 <= q < wl]
+            cells[lv.vol.dtype] += len(r_in) * len(c_in)
+        taps += maps.shape[0] * WIN2
+        rows += 0 if lv.scale is None else len(lv.targets) * 34
+    M = 34 * 4
+    named = len({t for lv in table for t in lv.targets})
+    assert cells[torch.int8] > 0 and rows == 7 * 34
+    assert chip_smoke.pyramid_bound_bytes(table, coords, R) == (
+        cells[torch.int8] + 2 * cells[torch.bfloat16] + 2 * taps + 4 * rows
+        + 8 * M * named)
+
+
 @pytest.mark.parametrize("dtype", list(DTYPES))
 def test_fused_convc1_on_concat_map_equals_per_level_cat(dtype):
     """With fuse_corr_conv the motion encoder reads the lookup's

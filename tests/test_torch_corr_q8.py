@@ -1,7 +1,9 @@
 """Port parity: the int8 volume lookup (lookup_method='pallas_q8'), the
 one-hot lookup and the mixed dispatch (onehot_from_level) against the JAX
 package: quantize_volume, lookup_level_slab_q8 run in interpret mode,
-_lookup_level_onehot and corr_lookup.
+_lookup_level_onehot and corr_lookup; the level table with int8 levels
+(its plain twin, its refusals, and the layout of its ctypes mirror against
+csrc/corr_lookup_table.cuh).
 
 Tolerances, stated where they are used:
   * int8 volume: equal, except where v * inv lands on a rounding tie in
@@ -12,10 +14,16 @@ Tolerances, stated where they are used:
     the port blends in f32 and rounds once, so outputs differ by a few
     bf16 ulps: 2^-6 of max |JAX| (four ulps at the top of the range);
   * one-hot: both select the patch exactly and blend in f32: f32 rtol
-    1e-5, atol 1e-5.
+    1e-5, atol 1e-5;
+  * the mixed table's plain twin against the per-level composition it
+    replaces: bit for bit (the same operations in the same order).
 """
 
 from __future__ import annotations
+
+import ctypes
+import re
+from pathlib import Path
 
 import jax.numpy as jnp
 import numpy as np
@@ -106,9 +114,9 @@ def test_q8_wrapper_raises_under_autograd_and_on_bad_inputs():
     q, scale = klookup.quantize_volume(vol)
     q = q.reshape(8, 20, 12)
     c = torch.from_numpy(coords.reshape(8, 2))
-    before = klookup.q8_launches
+    before = klookup.launches
     out = klookup.corr_lookup_level_q8(q, scale, c, 4)
-    assert klookup.q8_launches == before  # the CPU takes the plain version
+    assert klookup.launches == before  # the CPU takes the plain version
     assert torch.equal(out, klookup.corr_lookup_level_q8_plain(q, scale, c,
                                                                4))
     with pytest.raises(RuntimeError, match="inference only"):
@@ -197,3 +205,220 @@ def test_quantizes_reads_the_padded_height():
     """The JAX gate tests the row count padded to 16 (corr.py:218)."""
     assert [tcorr.quantizes(h) for h in (60, 30, 17, 16, 15, 7, 32)] == \
         [True, True, True, False, False, False, True]
+
+
+# ---------------------------------------------------------------------------
+# int8 levels in the level table (one launch for every pallas_q8 level)
+
+
+def _q8_table(seed, rest_dtype, h=18, w=8):
+    """A level table of the pyramid of _pyramids: level 0 int8 (its row
+    scales from quantize_volume), levels 1-3 in rest_dtype, or all four
+    int8 (rest_dtype None; level 3's 2x1 maps are not empty); and the
+    base coords."""
+    levels, ref, tgt, coords = _pyramids(seed, h, w)
+    dt = rest_dtype or torch.bfloat16
+    pyr = tcorr.build_corr_pyramid(torch.from_numpy(ref).to(dt),
+                                   torch.from_numpy(tgt).to(dt), levels,
+                                   "bfloat16" if dt == torch.bfloat16
+                                   else "float32")
+    table = []
+    for lvl, (idx, vol) in enumerate(pyr):
+        if lvl == 0 or rest_dtype is None:
+            q, scale = klookup.quantize_volume(vol)
+            table.append(klookup.TableLevel(q, idx, lvl, scale))
+        else:
+            table.append(klookup.TableLevel(vol, idx, lvl))
+    return table, torch.from_numpy(coords)
+
+
+@pytest.mark.parametrize("rest", [torch.bfloat16, torch.float32, None])
+def test_mixed_table_plain_equals_per_level_composition(rest):
+    """The all-level twin over int8 and unquantized levels is, bit for
+    bit, the per-level composition corr_lookup ran before int8 levels
+    joined the table: index and divide, corr_lookup_level_q8_plain or
+    corr_lookup_level_plain, permute, and torch.cat (whose promotion is
+    the output type: the unquantized levels' type, bf16 for int8 only);
+    the wrapper on CPU tensors is the twin and launches nothing."""
+    table, c = _q8_table(8, rest)
+    h1, w1 = c.shape[2:4]
+    old = []
+    for lv in table:
+        cl = (c[list(lv.targets)] / (2.0 ** lv.level)).reshape(-1, 2)
+        maps = lv.vol.reshape(-1, *lv.vol.shape[-2:])
+        if lv.scale is None:
+            feat = klookup.corr_lookup_level_plain(maps, cl, 4)
+        else:
+            feat = klookup.corr_lookup_level_q8_plain(maps, lv.scale, cl, 4)
+            assert feat.dtype == torch.bfloat16
+        old.append(feat.reshape(len(lv.targets), 1, h1, w1, -1)
+                   .permute(1, 2, 3, 0, 4).reshape(1, h1, w1, -1))
+    old = torch.cat(old, dim=-1)
+    assert old.dtype == (rest or torch.bfloat16)
+    before = (klookup.launches, klookup.bwd_launches)
+    got = klookup.corr_lookup_pyramid_plain(table, c, 4)
+    assert got.dtype == old.dtype and torch.equal(got, old)
+    assert torch.equal(klookup.corr_lookup_pyramid(table, c, 4), old)
+    assert (klookup.launches, klookup.bwd_launches) == before
+    assert old.abs().max() > 0
+
+
+@pytest.mark.parametrize("precision", ["bfloat16", "float32"])
+@pytest.mark.parametrize("ofl", [-1, 1])
+def test_corr_lookup_q8_concat_matches_jax(ofl, precision, monkeypatch):
+    """corr_lookup(..., 'pallas_q8', concat=True), the int8 level in the
+    port's one table launch, against the JAX package's, its Pallas
+    lookups in interpret mode. The int8 level's channels within 2^-6 of
+    max |JAX| (the module docstring); the others as
+    test_corr_lookup_methods_match_jax holds them: bf16 2^-6, f32 1e-5 of
+    max(1, max |JAX|)."""
+    monkeypatch.setattr(jcorr, "_INTERPRET", True)
+    levels, ref, tgt, coords = _pyramids(9)
+    dt, jdt = ((torch.bfloat16, jnp.bfloat16) if precision == "bfloat16"
+               else (torch.float32, jnp.float32))
+    t_pyr = tcorr.build_pyramid_for_method(
+        torch.from_numpy(ref).to(dt), torch.from_numpy(tgt).to(dt), levels,
+        precision, "pallas_q8", ofl)
+    j_pyr = jcorr.build_pyramid_for_method(
+        jnp.asarray(ref, jdt), jnp.asarray(tgt, jdt), levels, precision,
+        "pallas_q8", ofl)
+    assert isinstance(t_pyr[0][1], tuple)
+    got = tcorr.corr_lookup(t_pyr, torch.from_numpy(coords), 4, "pallas_q8",
+                            precision=precision, onehot_from_level=ofl)
+    want = jcorr.corr_lookup(j_pyr, jnp.asarray(coords), 4, "pallas_q8",
+                             precision=precision, onehot_from_level=ofl)
+    assert str(got.dtype).split(".")[-1] == str(want.dtype)
+    assert got.dtype == dt and tuple(got.shape) == (1, 18, 8, 11 * 81)
+    want = np.asarray(want, np.float32)
+    got = got.float().numpy()
+    off = 0
+    for lvl, (idx, vol) in enumerate(t_pyr):
+        n = len(idx) * 81
+        w = want[..., off:off + n]
+        tol = (2.0 ** -6 if isinstance(vol, tuple) or precision == "bfloat16"
+               else 1e-5)
+        np.testing.assert_allclose(got[..., off:off + n], w, rtol=0,
+                                   atol=tol * max(1.0, np.abs(w).max()),
+                                   err_msg=f"level {lvl}")
+        off += n
+
+
+def test_q8_corr_lookup_builds_one_table(monkeypatch):
+    """Under pallas_q8 with no level sent to the one-hot lookup,
+    corr_lookup hands the whole pyramid, int8 levels with their scales, to
+    one all-level lookup with the base coords themselves (no index or
+    divide of its own) and returns that lookup's map as it is (no permute
+    or cat); on the CPU nothing launches."""
+    levels, ref, tgt, coords = _pyramids(10)
+    pyr = tcorr.build_pyramid_for_method(
+        torch.from_numpy(ref).bfloat16(), torch.from_numpy(tgt).bfloat16(),
+        levels, "bfloat16", "pallas_q8")
+    calls = []
+    fwd = klookup._pyramid_fwd
+
+    def spy(table, c, radius):
+        out = fwd(table, c, radius)
+        calls.append((table, c, out))
+        return out
+
+    monkeypatch.setattr(klookup, "_pyramid_fwd", spy)
+    c = torch.from_numpy(coords)
+    before = klookup.launches
+    got = tcorr.corr_lookup(pyr, c, 4, "pallas_q8")
+    assert klookup.launches == before
+    ((table, seen, out),) = calls
+    # the base coords' own storage (a detached view), and the map itself
+    assert got is out
+    assert seen.data_ptr() == c.data_ptr() and seen.shape == c.shape
+    assert [lv.level for lv in table] == [0, 1, 2, 3]
+    assert [lv.vol.dtype for lv in table] == [torch.int8] + [
+        torch.bfloat16] * 3
+    assert table[0].scale is pyr[0][1][1] and table[0].vol is pyr[0][1][0]
+    assert all(lv.scale is None for lv in table[1:])
+    assert got.dtype == torch.bfloat16
+
+
+def _bad_table(fault):
+    table, c = _q8_table(11, torch.bfloat16)
+    q = table[0]
+    if fault == "no_scale":
+        table[0] = q._replace(scale=None)
+    elif fault == "scale_shape":
+        table[0] = q._replace(scale=q.scale.reshape(-1))
+    elif fault == "scale_type":
+        table[0] = q._replace(scale=q.scale.double())
+    elif fault == "scale_strided":
+        table[0] = q._replace(scale=q.scale.transpose(0, 2).contiguous()
+                              .transpose(0, 2))
+    elif fault == "scale_on_bf16":
+        table[1] = table[1]._replace(scale=q.scale)
+    elif fault == "mixed_unquantized":
+        table[2] = table[2]._replace(vol=table[2].vol.float())
+    elif fault == "empty_int8_map":
+        table[0] = q._replace(vol=q.vol[..., :0, :])
+    return table, c
+
+
+@pytest.mark.parametrize("fault,exc", [
+    ("no_scale", ValueError), ("scale_shape", ValueError),
+    ("scale_type", TypeError), ("scale_strided", ValueError),
+    ("scale_on_bf16", ValueError), ("mixed_unquantized", TypeError),
+    ("empty_int8_map", ValueError)])
+def test_table_refuses_bad_int8_levels(fault, exc):
+    """What the kernel cannot take raises before any pointer is handed
+    over, on the CPU path as on the card's."""
+    table, c = _bad_table(fault)
+    with pytest.raises(exc):
+        klookup.corr_lookup_pyramid(table, c, 4)
+
+
+def test_int8_table_has_no_backward():
+    """A table with an int8 level: the backward wrappers raise before any
+    launch, and autograd through it raises 'inference only', in the
+    wrapper and in corr_lookup."""
+    table, c = _q8_table(12, torch.float32)
+    g = torch.zeros(1, 18, 8, 11 * 81)
+    before = klookup.bwd_launches
+    with pytest.raises(ValueError, match="no backward"):
+        klookup.lookup_pyramid_bwd_cuda(table, c, g, 4, None)
+    with pytest.raises(ValueError, match="no backward"):
+        klookup.corr_lookup_pyramid_bwd_plain(table, c, g, 4, None)
+    assert klookup.bwd_launches == before
+    with pytest.raises(RuntimeError, match="inference only"):
+        klookup.corr_lookup_pyramid(table, c.clone().requires_grad_(True), 4)
+    with pytest.raises(RuntimeError, match="inference only"):
+        klookup.corr_lookup_pyramid(
+            [table[0]._replace(scale=table[0].scale.requires_grad_(True))],
+            c, 4)
+    pyr = [(lv.targets, (lv.vol, lv.scale) if lv.scale is not None
+            else lv.vol.requires_grad_(True)) for lv in table]
+    with pytest.raises(RuntimeError, match="inference only"):
+        tcorr.corr_lookup(pyr, c, 4, "pallas_q8")
+    with torch.no_grad():  # inference: the same map as the twin
+        assert torch.equal(tcorr.corr_lookup(pyr, c, 4, "pallas_q8"),
+                           klookup.corr_lookup_pyramid_plain(table, c, 4))
+
+
+_TABLE_HEADER = (Path(__file__).resolve().parent.parent / "bflow_tpu_torch"
+                 / "csrc" / "corr_lookup_table.cuh")
+
+
+@pytest.mark.parametrize("struct", ["LevelDesc", "LookupTable"])
+def test_table_mirror_layout_matches_header(struct):
+    """The ctypes mirror has the size and field offsets that the header's
+    static_asserts hold the CUDA struct to (a mismatch gives wrong numbers
+    on the card, not a crash), and every field the mirror names is
+    asserted there."""
+    text = _TABLE_HEADER.read_text()
+    (size,) = re.findall(
+        rf"static_assert\(sizeof\({struct}\) == (\d+)", text)
+    offsets = dict(re.findall(
+        rf"static_assert\(offsetof\({struct}, (\w+)\) ==\s*(\d+)", text))
+    mirror = {"LevelDesc": klookup._LevelDesc,
+              "LookupTable": klookup._LookupTable}[struct]
+    assert ctypes.sizeof(mirror) == int(size)
+    assert offsets and set(offsets) <= {f for f, _ in mirror._fields_}
+    for field, off in offsets.items():
+        assert getattr(mirror, field).offset == int(off), field
+    named = {f for f, _ in mirror._fields_} - set(offsets)
+    assert named <= {"level", "pad"}, named

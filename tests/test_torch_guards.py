@@ -2,7 +2,8 @@
 entry points refuse to fall back to the CPU, its weights bridge round-trips
 through the JAX package's importer, and (on a GPU only) its CUDA kernels
 match their plain versions at the flagship shapes (the all-level lookup
-forward and accumulating backward too), the conv kernels in every tile
+forward and accumulating backward too; the forward also over pallas_q8's
+int8 levels, and on ragged shapes), the conv kernels in every tile
 variant, an encoder under the conv kernels stays channels-last between
 convs, the sink hands the kernels' dVol to autograd, and a model launches
 one all-level lookup per iteration each way.
@@ -364,17 +365,134 @@ def test_model_launch_counts_on_gpu(cuda_device):
 @pytest.mark.cuda
 @pytest.mark.parametrize("level", range(2))
 def test_q8_lookup_kernel_matches_plain_on_gpu(cuda_device, level):
-    """The int8 lookup kernel against its twin at the two flagship levels
-    that pallas_q8 quantizes (chip_smoke phase 3c)."""
+    """The one-level int8 entry (the forward kernel with a one-level int8
+    table) against its twin at the two flagship levels that pallas_q8
+    quantizes (chip_smoke phase 3c)."""
     import chip_smoke
 
     from bflow_tpu_torch.kernels import corr_lookup
 
     Tl, hl, wl = chip_smoke.LEVELS[level]
-    before = corr_lookup.q8_launches
-    rec = chip_smoke.check_q8_level(Tl, hl, wl, seed=level, timing=False)
-    assert corr_lookup.q8_launches == before + 1
+    before = corr_lookup.launches
+    rec = chip_smoke.check_q8_level(Tl, hl, wl, seed=level)
+    assert corr_lookup.launches == before + 1
     assert rec["ok"] and rec["max_abs_err"] == 0.0, rec
+
+
+def _ragged_q8_table(rest, radius, device):
+    """A table on ragged shapes (2 images of 5 x 7 queries, 3 base
+    targets): int8 levels of 9 x 13 and 5 x 3 maps beside `rest` levels
+    of 0 x 4 (no rows) and 2 x 1 maps (rest None: the int8 levels alone);
+    base coords around the maps, one in five far (+-1e4), one in five just
+    below an integer."""
+    from bflow_tpu_torch.kernels import corr_lookup
+
+    gen = torch.Generator(device=device).manual_seed(17 + radius)
+    n, h1, w1 = 2, 5, 7
+    spec = [((0, 1, 2), 9, 13, True), ((1, 2), 5, 3, True)]
+    if rest is not None:
+        spec += [((2,), 0, 4, False), ((0, 2), 2, 1, False)]
+    table = []
+    for lvl, (idx, hl, wl, q8) in enumerate(spec):
+        vol = torch.randn(len(idx), n, h1, w1, hl, wl, generator=gen,
+                          device=device)
+        if q8:
+            vq, scale = corr_lookup.quantize_volume(vol.bfloat16())
+            table.append(corr_lookup.TableLevel(vq, idx, lvl, scale))
+        else:
+            table.append(corr_lookup.TableLevel(vol.to(rest), idx, lvl))
+    c = torch.rand(3, n, h1, w1, 2, generator=gen, device=device) * 18 - 3
+    pick = torch.rand(3, n, h1, w1, 1, generator=gen, device=device)
+    far = torch.where(torch.rand(3, n, h1, w1, 2, generator=gen,
+                                 device=device) < 0.5, -1e4, 1e4)
+    below = torch.nextafter(torch.round(c), torch.full_like(c, -1e9))
+    c = torch.where(pick < 0.2, far, torch.where(pick > 0.8, below, c))
+    return table, c.contiguous()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("radius", [2, 4])
+@pytest.mark.parametrize("rest", [torch.bfloat16, torch.float32, None])
+def test_q8_table_matches_plain_on_ragged_shapes_on_gpu(cuda_device, rest,
+                                                        radius):
+    """The all-level forward over int8 levels beside bf16 or f32 levels
+    (one of them with no rows), or over int8 levels alone, equals its
+    plain twin bit for bit in the promoted output type, on ragged shapes
+    with far coordinates and coordinates at the rounding edge, in one
+    launch."""
+    from bflow_tpu_torch.kernels import corr_lookup
+
+    table, c = _ragged_q8_table(rest, radius, cuda_device)
+    before = corr_lookup.launches
+    got = corr_lookup.lookup_pyramid_cuda(table, c, radius)
+    torch.cuda.synchronize()
+    assert corr_lookup.launches == before + 1
+    want = corr_lookup.corr_lookup_pyramid_plain(table, c, radius)
+    assert got.dtype == want.dtype == (rest or torch.bfloat16)
+    assert torch.equal(got, want)
+    assert want.abs().max() > 0
+
+
+@pytest.mark.cuda
+def test_bf16_table_unchanged_beside_int8_on_gpu(cuda_device):
+    """At the flagship shapes the bf16 table equals its twin bit for bit,
+    the opt-in table's bf16 levels 2-3 give the bf16 table's bits, and
+    chip_smoke's phase 3c checks pass: the opt-in table and its int8
+    levels alone exact against their twins and, per level, against the
+    one-level entries (one launch each)."""
+    import chip_smoke
+
+    from bflow_tpu_torch.kernels import corr_lookup
+
+    table, coords = chip_smoke.pyramid_inputs(1, chip_smoke.H1,
+                                              chip_smoke.W1, torch.bfloat16,
+                                              seed=3)
+    mixed = chip_smoke.q8_table(table)
+    assert [lv.vol.dtype for lv in mixed] == [torch.int8] * 2 + [
+        torch.bfloat16] * 2
+    plain = corr_lookup.lookup_pyramid_cuda(table, coords, 4)
+    both = corr_lookup.lookup_pyramid_cuda(mixed, coords, 4)
+    torch.cuda.synchronize()
+    assert torch.equal(plain, corr_lookup.corr_lookup_pyramid_plain(
+        table, coords, 4))
+    deep = (5 + 2) * 81  # channels of levels 0-1
+    assert torch.equal(both[..., deep:], plain[..., deep:])
+    before = corr_lookup.launches
+    rec_mixed, rec_q8 = chip_smoke.check_q8_pyramid(
+        1, chip_smoke.H1, chip_smoke.W1, seed=4, timing=False)
+    assert corr_lookup.launches == before + (1 + 4) + (1 + 2)
+    for rec in (rec_mixed, rec_q8):
+        assert rec["ok"] and rec["max_abs_err"] == 0.0, rec
+
+
+@pytest.mark.cuda
+def test_lookup_kernels_refuse_tables_they_do_not_take_on_gpu(cuda_device):
+    """The backward kernel returns cudaErrorInvalidValue for a table with
+    an int8 level (its wrapper raises before any launch), and the forward
+    for a table whose unquantized levels are not of its output type."""
+    import ctypes
+
+    from bflow_tpu_torch.kernels import build, corr_lookup
+
+    table, c = _ragged_q8_table(torch.bfloat16, 4, cuda_device)
+    C = sum(len(lv.targets) for lv in table) * 81
+    g = torch.zeros(*c.shape[1:4], C, device=cuda_device,
+                    dtype=torch.bfloat16)
+    dc = torch.empty_like(c)
+    tab = corr_lookup._table_struct(table, c, 4, C)
+    stream = torch.cuda.current_stream().cuda_stream
+    bwd = build.function(corr_lookup.BWD_NAME, "corr_lookup_bwd_bf16",
+                         corr_lookup._ARGTYPES[corr_lookup.BWD_NAME])
+    assert bwd(ctypes.byref(tab), c.data_ptr(), g.data_ptr(), dc.data_ptr(),
+               stream) == 1  # cudaErrorInvalidValue
+    fwd = build.function(corr_lookup.NAME, "corr_lookup_fwd_f32",
+                         corr_lookup._ARGTYPES[corr_lookup.NAME])
+    out = torch.empty(*c.shape[1:4], C, device=cuda_device)
+    assert fwd(ctypes.byref(tab), c.data_ptr(), out.data_ptr(), stream) == 1
+    before = corr_lookup.bwd_launches
+    with pytest.raises(ValueError, match="no backward"):
+        corr_lookup.lookup_pyramid_bwd_cuda(table, c, g, 4, None)
+    assert corr_lookup.bwd_launches == before
 
 
 @pytest.mark.cuda

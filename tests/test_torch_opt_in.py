@@ -24,6 +24,7 @@ from bflow_tpu.models import corr as jcorr
 from bflow_tpu.models import extractor as jext
 from bflow_tpu.models import update as jupd
 from bflow_tpu_torch.kernels import conv3x3 as kconv
+from bflow_tpu_torch.kernels import corr_lookup as klookup
 from bflow_tpu_torch.kernels import stem_conv as kstem
 from bflow_tpu_torch.models import extractor as text
 from bflow_tpu_torch.models import update as tupd
@@ -188,11 +189,23 @@ def test_launch_derivation_matches_dispatch(monkeypatch):
     model = bt.build_model(tcfg, device="cpu")
     voxel, images = make_inputs(tcfg, H=144, W=64, seed=3)
     calls = _Calls(monkeypatch)
+    tables = []
+    fwd = klookup._pyramid_fwd
+
+    def lookup(table, *args):
+        tables.append([lv.vol.dtype for lv in table])
+        return fwd(table, *args)
+
+    monkeypatch.setattr(klookup, "_pyramid_fwd", lookup)
     model(torch.from_numpy(voxel), torch.from_numpy(images), test_mode=True)
     want = chip_smoke.expected_launches(tcfg, 1, 144, 64, 2)
     assert calls.counts() == {kconv.NAME: want[kconv.NAME],
                               kstem.NAME: want[kstem.NAME]}
     assert want[kstem.NAME] == 9 and want[kconv.NAME] > 30
+    # one all-level lookup per iteration, the int8 level 0 (18 rows) in
+    # its table
+    assert len(tables) == want[klookup.NAME] == 2
+    assert all(t == [torch.int8] + [torch.bfloat16] * 3 for t in tables)
 
 
 def test_opt_in_forward_matches_jax(interpret):
