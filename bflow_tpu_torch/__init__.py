@@ -11,6 +11,9 @@ run on the GPU unless the caller asks for the CPU:
     flow = up.flow_at(1.0)                           # (N, H, W, 2)
 
 On CPU tensors every kernel wrapper runs its plain PyTorch version.
+Evaluation on a DSEC root goes through ``python -m bflow_tpu_torch.val``
+and ``python -m bflow_tpu_torch.predict_dsec`` (the JAX package's CLI
+overrides; ``main(argv, device="cpu")`` from Python).
 """
 
 from __future__ import annotations

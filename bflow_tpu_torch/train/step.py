@@ -22,6 +22,7 @@ from typing import Any, Dict, Iterable, Tuple
 
 import torch
 
+from bflow_tpu_torch.data.keys import DataLoading as K
 from bflow_tpu_torch.ops.bezier import BezierCurves
 from bflow_tpu_torch.utils import metrics as M
 from bflow_tpu_torch.utils.losses import (
@@ -30,8 +31,8 @@ from bflow_tpu_torch.utils.losses import (
 )
 from bflow_tpu_torch.utils.padder import InputPadder
 
-# batch keys (bflow_tpu/data/keys.py:DataLoading)
-EV_REPR, IMG, FLOW, FLOW_VALID = "ev_repr", "img", "flow", "flow_valid"
+EV_REPR, IMG, FLOW, FLOW_VALID = (K.EV_REPR.value, K.IMG.value,
+                                  K.FLOW.value, K.FLOW_VALID.value)
 
 
 @dataclass(frozen=True)

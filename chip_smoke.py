@@ -2,7 +2,7 @@
 """Smoke run of the PyTorch port (bflow_tpu_torch) on one NVIDIA GPU.
 
     python3 chip_smoke.py [--profile DIR] [--seed N] [--conv-sweep]
-                          [--lookup-probe]
+                          [--lookup-probe] [--eval-only]
 
 Run from the repository root, on a machine with a CUDA GPU and the CUDA
 toolkit (nvcc). Phases, each printing JSON lines:
@@ -48,13 +48,33 @@ toolkit (nvcc). Phases, each printing JSON lines:
                   dVol sum); then one bf16 flagship step, and
                   (6c, train_conv) one with the stem and conv kernels, its
                   gradients vs the plain twins'
-  7. train_parity kernel path vs gather path, loss and gradients of a step
+     train_parity kernel path vs gather path, loss and gradients of a step
+  7. eval         the DSEC evaluation path through the port's own entry
+                  points, on fabricated recordings in the DSEC directory
+                  contract at 480x640 (~10^6 events per window; 9 train
+                  and 4 test windows) in a temporary directory:
+                  (7a, eval_data) writing them; (7b, eval_voxelize) one
+                  window's rectified and raw events through the device
+                  voxelizer vs the host rasterizer (<= 1e-4), host and
+                  device ms; (7c, eval_val) bflow_tpu_torch.val.main with
+                  the flagship experiment overrides at batch 4 (two
+                  batches and a tail of 1) on a damped-head port
+                  checkpoint: uncached, writing the voxel caches, reading
+                  them (equal metrics), the composed config ==
+                  flagship_config(), 12 lookup launches per forward, the
+                  CSV's val/* within 5e-2 of make_eval_step on the plain
+                  twins, fields/s and the loader-wait share; (7d,
+                  eval_val_opt_in) the opt-in modes in one batch, launches
+                  12 / 9 / 138 per forward; (7e, eval_predict)
+                  predict_dsec on the test recording: 4 PNGs within 1/128
+                  px of the eval forward
   8. kernels      one JSON line summing up every kernel
 and, as the last line, {"ok": true, "device": {...}}. Any failure exits
 nonzero before that line; so does a machine without CUDA. The profiles
 (torch.profiler: kernels by device time, idle share) always run; --profile
 DIR also writes their chrome traces into DIR.
---conv-sweep runs phases 1 and 2, then times every tile variant of the conv
+--eval-only runs phases 1, 2 and 7 and stops. --conv-sweep runs phases
+1 and 2, then times every tile variant of the conv
 kernels at every flagship conv shape beside the one the tile plan picks,
 and stops. --lookup-probe runs phases 1 and 2, then times the all-level
 lookup kernels' probe variants (patch loads, stores, accumulator read or
@@ -73,7 +93,10 @@ import re
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
+from concurrent.futures import ThreadPoolExecutor
+from pathlib import Path
 
 import numpy as np
 import torch
@@ -653,8 +676,6 @@ def profile_run(fn, unprofiled_ms: float, out_dir, name: str,
     With vol_shapes (the lookup volumes' shapes), also the device time
     and count of the fills (zeroing the dVol buffers) and of the adds
     (autograd summing per-iteration dVols) on tensors of those shapes."""
-    from pathlib import Path
-
     from torch.profiler import ProfilerActivity, profile
 
     fn()
@@ -1148,9 +1169,10 @@ def conv_variant_resources(ptxas_log: str):
     return out
 
 
-def conv_summary(name, replaces, recs, counts):
+def conv_summary(name, replaces, recs, counts, eval_counts):
     """A conv kernel's entry of the kernels line: times per flagship
-    forward (each shape's time x its launches per forward)."""
+    forward (each shape's time x its launches per forward); launches in
+    phase 4b's forwards and in phase 7d's val run."""
     def per_forward(key):
         return sum(r[key] * r["per_forward"] for r in recs)
 
@@ -1159,6 +1181,7 @@ def conv_summary(name, replaces, recs, counts):
     return {"name": name, "route": "cuda",
             "source": f"bflow_tpu_torch/csrc/{name}.cu",
             "replaces": replaces, "launches": counts[name],
+            "launches_eval": eval_counts[name],
             "max_abs_err": max(r["max_abs_err"] for r in recs),
             "ms": per_forward("ms"), "plain_ms": per_forward("plain_ms"),
             "bound_ms": per_forward("bound_ms"),
@@ -1167,6 +1190,365 @@ def conv_summary(name, replaces, recs, counts):
             "ms_nchw_input": per_forward("ms_nchw_input"),
             "library_nchw_ms": per_forward("library_nchw_ms"),
             "per": "flagship forward", "shapes": len(recs)}
+
+
+# ---------------------------------------------------------------------------
+# phase 7: the DSEC evaluation path through the port's own entry points
+
+
+EVAL_WINDOWS, EVAL_TEST_WINDOWS, EVAL_BATCH = 9, 4, 4
+EVENTS_PER_WINDOW = 1_000_000
+DSEC_EXPERIMENT = "+experiment/dsec/raft_spline=E_I_LU4_BD2_lowpyramid"
+# the flagship's overrides: 15 bins, bf16 correlation and compute
+# (fuse_corr_conv and 12 iterations are the config's defaults, the
+# correlation bins come from the data)
+FLAGSHIP_OVERRIDES = ["model.num_bins.context=15",
+                      "model.precision.corr=bfloat16",
+                      "model.precision.compute=bfloat16"]
+OPT_IN_OVERRIDES = ["model.lookup_method=pallas_q8", "model.pallas_stem=true",
+                    "model.pallas_conv=true"]
+
+
+def write_png(path, img) -> None:
+    import cv2
+
+    check(cv2.imwrite(str(path), np.ascontiguousarray(img[..., ::-1])),
+          f"cv2 could not write {path}")  # cv2 takes BGR
+
+
+def write_dsec_recording(seq, n_flows: int, seed: int, with_flow: bool,
+                         events_per_window: int = EVENTS_PER_WINDOW,
+                         h: int = H, w: int = W) -> dict:
+    """One recording in the DSEC directory contract (the data layer's, as
+    tests/fixtures.py:make_dsec_sequence writes it), through the port's
+    own HDF5 writer where h5py is missing: n_flows 100 ms flow windows
+    from 100 ms after the recording's start, events uniform over the span
+    with a window of margin at each end, a sub-pixel rectify map,
+    boundary frames, and flow ground truth (16-bit PNGs) where with_flow.
+    Returns the events and bytes written."""
+    from bflow_tpu_torch.data import hdf5
+
+    rng = np.random.default_rng(seed)
+    ev_dir = seq / "events" / "left"
+    ev_dir.mkdir(parents=True)
+    (seq / "flow").mkdir()
+    t_offset, step = 10_000_000, 100_000
+    starts = t_offset + step * np.arange(1, n_flows + 1, dtype=np.int64)
+    np.savetxt(seq / "flow" / "forward_timestamps.txt",
+               np.stack([starts, starts + step], axis=1), fmt="%d",
+               delimiter=",")
+    if with_flow:
+        (seq / "flow" / "forward").mkdir()
+        for i in range(n_flows):
+            flow = rng.uniform(-8, 8, (h, w, 2))
+            valid = rng.random((h, w)) > 0.2
+            enc = np.zeros((h, w, 3), np.uint16)
+            enc[..., :2] = np.where(valid[..., None],
+                                    np.clip(flow * 128 + 2**15, 0, 2**16 - 1),
+                                    2**15)
+            enc[..., 2] = valid
+            write_png(seq / "flow" / "forward" / f"{2 * i:06d}.png", enc)
+    n_events = events_per_window * (n_flows + 2)
+    span = step * (n_flows + 2)
+    t_rel = np.sort(rng.integers(0, span, n_events)).astype(np.uint32)
+    hdf5.write_arrays(ev_dir / "events.h5", {
+        "events/t": t_rel,
+        "events/x": rng.integers(0, w, n_events).astype(np.uint16),
+        "events/y": rng.integers(0, h, n_events).astype(np.uint16),
+        "events/p": rng.integers(0, 2, n_events).astype(np.uint8),
+        "ms_to_idx": np.searchsorted(
+            t_rel, 1000 * np.arange(span // 1000 + 200, dtype=np.int64)),
+        "t_offset": np.int64(t_offset)})
+    gx, gy = np.meshgrid(np.arange(w), np.arange(h))
+    rect = np.stack([gx, gy], axis=-1).astype(np.float32)
+    rect += rng.uniform(-0.4, 0.4, rect.shape).astype(np.float32)
+    rect[..., 0] = np.clip(rect[..., 0], 0, w - 1)
+    rect[..., 1] = np.clip(rect[..., 1], 0, h - 1)
+    hdf5.write_arrays(ev_dir / "rectify_map.h5", {"rectify_map": rect})
+    img_dir = seq / "images" / "left" / "ev_inf"
+    img_dir.mkdir(parents=True)
+    for i in range(n_flows + 2):
+        write_png(img_dir / f"{2 * i:06d}.png",
+                  rng.integers(0, 255, (h, w, 3)).astype(np.uint8))
+    return {"events": n_events, "events_per_window": events_per_window,
+            "bytes": sum(p.stat().st_size for p in seq.rglob("*")
+                         if p.is_file())}
+
+
+def eval_voxelize(seq, nbins: int, device="cuda", h: int = H, w: int = W):
+    """Phase 7b: one window's events from the port's EventSlicer, the
+    rectified (float) ones and the raw (integer) ones, through the host
+    rasterizer and the device one; the device gets window-relative times
+    (ops/voxelize.py: t is cast to f32 before t0 is subtracted)."""
+    from bflow_tpu_torch.data import hdf5
+    from bflow_tpu_torch.data.eventslicer import EventSlicer
+    from bflow_tpu_torch.data.representations import VoxelGrid
+    from bflow_tpu_torch.ops.voxelize import voxelize_events
+
+    ts = np.loadtxt(seq / "flow" / "forward_timestamps.txt", dtype=np.int64,
+                    delimiter=",", ndmin=2)
+    t0c, t1c = (int(v) for v in ts[1])
+    grid = VoxelGrid(nbins, h, w)
+    lo, hi = grid.get_extended_time_window(t0c, t1c)
+    ev_dir = seq / "events" / "left"
+    with hdf5.open_file(ev_dir / "events.h5") as f:
+        ev = EventSlicer(f).get_events(lo, hi)
+    with hdf5.open_file(ev_dir / "rectify_map.h5") as f:
+        rect = np.asarray(f["rectify_map"])
+    x, y, p, t = ev["x"], ev["y"], ev["p"], ev["t"].astype(np.int64)
+    xy = rect[y, x]
+    rec = {"events": int(t.size), "window_us": [lo, hi], "bound": 1e-4}
+    for name, xs, ys in (("rectified", xy[:, 0], xy[:, 1]),
+                         ("raw", x.astype(np.int64), y.astype(np.int64))):
+        host_args = (xs, ys, p.astype(np.float32), t, t0c, t1c)
+        t0 = time.perf_counter()
+        want = grid.convert(*host_args)
+        host_ms = (time.perf_counter() - t0) * 1e3
+        # the same window four times on four threads (the Loader's
+        # workers): the wall says how much of the host rasterizer runs
+        # outside the GIL
+        with ThreadPoolExecutor(4) as pool:
+            t0 = time.perf_counter()
+            list(pool.map(lambda _: grid.convert(*host_args), range(4)))
+            host4_ms = (time.perf_counter() - t0) * 1e3
+        args = [torch.from_numpy(np.ascontiguousarray(a)).to(device)
+                for a in (xs, ys, p, t - t0c)]
+        valid = torch.ones(t.size, dtype=torch.bool, device=device)
+
+        def fn():
+            return voxelize_events(*args, valid, 0, t1c - t0c,
+                                   channels=nbins, height=h, width=w)
+
+        got = fn()
+        again = fn()
+        err = (got.permute(2, 0, 1).cpu()
+               - torch.from_numpy(want)).abs().max().item()
+        dev_ms = time_ms(fn, reps=10, warmup=1)
+        rec[name] = {"max_abs_err": err,
+                     "repeat_max_abs_diff": (again - got).abs().max().item(),
+                     "host_ms": host_ms, "host_ms_4_on_4_threads": host4_ms,
+                     "device_ms": dev_ms,
+                     "events_per_s": t.size / (dev_ms / 1e3)}
+        check(err <= 1e-4, f"device voxelizer, {name} events: max |device - "
+                           f"host| {err} > 1e-4")
+    return rec
+
+
+def read_val_csv(path) -> dict:
+    import csv
+
+    with open(path) as fh:
+        rows = list(csv.DictReader(fh))
+    check(len(rows) == 1, f"{path}: {len(rows)} rows")
+    return {k: float(v) for k, v in rows[0].items()}
+
+
+def val_args(root, ckpt, batch, cache: bool, extra=(), h=H, w=W):
+    """The CLI overrides of phase 7 (DSEC's size needs none)."""
+    size = [] if (h, w) == (H, W) else [f"dataset.height={h}",
+                                        f"dataset.width={w}"]
+    return ["dataset=dsec", "model=raft-spline", f"dataset.path={root}",
+            f"checkpoint={ckpt}", DSEC_EXPERIMENT, *FLAGSHIP_OVERRIDES,
+            f"batch_size={batch}", "hardware.num_workers=4",
+            f"dataset.load_voxel_grid={str(cache).lower()}", *size, *extra]
+
+
+def val_run(args, workdir, device="cuda"):
+    """bflow_tpu_torch.val.main once in workdir, launch counts reset just
+    before and read just after; its CSV read back."""
+    import os
+
+    from bflow_tpu_torch import val
+
+    cwd = os.getcwd()
+    os.chdir(workdir)
+    try:
+        kernels.reset_launch_counts()
+        out = val.main(args, device=device)
+        if device == "cuda":
+            torch.cuda.synchronize()
+        counts = kernels.launch_counts()
+    finally:
+        os.chdir(cwd)
+    csv_metrics = read_val_csv(workdir / "validation_logs" / "val_metrics.csv")
+    return out, counts, csv_metrics
+
+
+def batch_sizes(n: int, b: int):
+    return [min(b, n - i) for i in range(0, n, b)]
+
+
+def plain_twin_metrics(args, ckpt, device="cuda"):
+    """The val/* metrics of make_eval_step over the same batches, every
+    kernel swapped for its plain twin (plain_twins); also the batches'
+    flows at t=1."""
+    from bflow_tpu_torch.cli import (CONFIG_DIR, backfill_correlation_bins,
+                                     build_provider, model_config_from)
+    from bflow_tpu_torch.confsys import compose
+    from bflow_tpu_torch.data.loader import Loader
+    from bflow_tpu_torch.train import TaskConfig, make_eval_step
+    from bflow_tpu_torch.train.checkpoint import restore_weights_only
+    from bflow_tpu_torch.utils.metrics import MetricBank
+
+    config = compose(CONFIG_DIR, "val", args)
+    provider = build_provider(config)
+    backfill_correlation_bins(config, provider)
+    model = bt.RAFTSpline(model_config_from(config))
+    restore_weights_only(ckpt, model)
+    model = model.to(device).eval()
+    step = make_eval_step(model, TaskConfig("dsec"))
+    loader = Loader(provider.get_val_dataset(), int(config["batch_size"]),
+                    num_workers=4, drop_last=False, device=device)
+    bank = MetricBank()
+    with plain_twins():
+        for batch in loader:
+            bank.update(step(batch)[0])
+    return bank.compute()
+
+
+def eval_phase(workdir, seed: int, device="cuda", h: int = H, w: int = W,
+               events_per_window: int = EVENTS_PER_WINDOW):
+    """Phase 7: fabricate DSEC recordings (7a), the device voxelizer
+    against the host one (7b), val on the default path, uncached, writing
+    the voxel caches and reading them (7c), val with the opt-in modes
+    (7d), predict_dsec on the test recording (7e). Returns the launch
+    counts of 7c's first run and of 7d, for the kernels line."""
+    from bflow_tpu_torch.data import hdf5
+    from bflow_tpu_torch.data import io as dio
+    from bflow_tpu_torch.data.keys import DataLoading as K
+
+    t_phase = time.perf_counter()
+    root = workdir / "dsec"
+    train_seq = root / "train" / "zurich_city_00_a"
+    test_seq = root / "test" / "interlaken_00_b"
+    t0 = time.perf_counter()
+    wrote = {"train": write_dsec_recording(
+        train_seq, EVAL_WINDOWS, seed, True, events_per_window, h, w),
+        "test": write_dsec_recording(
+        test_seq, EVAL_TEST_WINDOWS, seed + 1, False, events_per_window, h,
+        w)}
+    emit("eval_data", height=h, width=w, windows={
+        "train": EVAL_WINDOWS, "test": EVAL_TEST_WINDOWS}, **wrote,
+        seconds=time.perf_counter() - t0,
+        hdf5="h5py" if hdf5.h5py is not None else "bflow_tpu_torch builtin",
+        cache_codec=dio.cache_codec())
+
+    # 7b. the device voxelizer
+    cfg = bt.flagship_config()
+    rec = eval_voxelize(train_seq, cfg.nbins_context, device, h, w)
+    emit("eval_voxelize", **rec)
+
+    # 7c. val, default modes: uncached, writing the caches, reading them
+    ckpt = workdir / "flagship_damped.pt"
+    model = damp_head(bt.build_model(cfg, device=device, seed=seed))
+    torch.save({"model": model.state_dict()}, ckpt)
+    del model
+    sizes = batch_sizes(EVAL_WINDOWS, EVAL_BATCH)
+    want = dict.fromkeys(kernels.KERNELS, 0)
+    for n in sizes:
+        for k, v in expected_launches(cfg, n, h, w).items():
+            want[k] += v
+    runs, csvs = {}, {}
+    for name, cache in (("uncached", False), ("cache_writing", True),
+                        ("cached", True)):
+        out, counts, csvs[name] = val_run(
+            val_args(root, ckpt, EVAL_BATCH, cache, (), h, w), workdir, device)
+        runs[name] = {"fields": out["fields"], "seconds": out["seconds"],
+                      "fields_per_s": out["metrics"]["fields_per_sec"],
+                      "loader_wait_share": out["loader_wait_share"],
+                      "launches": counts,
+                      "launches_per_forward": {
+                          k: v / len(sizes) for k, v in counts.items()}}
+        check(out["model_config"] == cfg,
+              f"val built {out['model_config']}, not flagship_config()")
+        check(out["fields"] == EVAL_WINDOWS, f"val saw {out['fields']}")
+        check(counts == want, f"val {name}: launches {counts}, derived "
+                              f"{want} over batches {sizes}")
+    metrics = {k: v for k, v in csvs["uncached"].items()
+               if k.startswith("val/")}
+    check(metrics and all(np.isfinite(v) for v in metrics.values()),
+          f"val metrics {metrics}")
+    for name in ("cache_writing", "cached"):
+        other = {k: csvs[name][k] for k in metrics}
+        check(other == metrics, f"val {name} {other} != uncached {metrics}")
+    caches = sorted(train_seq.glob("events/left/voxel_grids_*/*.h5"))
+    check(len(caches) == EVAL_WINDOWS + 1, f"{len(caches)} cache files")
+    plain = plain_twin_metrics(val_args(root, ckpt, EVAL_BATCH, True, (), h, w), ckpt,
+                               device)
+    rel = {k: abs(metrics[k] - plain[k]) / max(abs(plain[k]), 1e-6)
+           for k in metrics}
+    emit("eval_val", config="flagship E_I_LU4_BD2 bf16 fuse_corr_conv "
+                            "(config composed by val, == flagship_config())",
+         batch=EVAL_BATCH, batches=sizes, height=h, width=w,
+         runs=runs, metrics=metrics, plain_twin_metrics=plain,
+         rel_diff_vs_plain=rel, bound=5e-2, cache_files=len(caches),
+         launches_derived=want)
+    check(all(v < 5e-2 for v in rel.values()),
+          f"val metrics vs plain twins: {rel}")
+
+    # 7d. val with the opt-in modes: every window in one batch
+    opt_cfg = opt_in_config()
+    out, opt_counts, opt_csv = val_run(
+        val_args(root, ckpt, EVAL_WINDOWS, True, OPT_IN_OVERRIDES, h, w), workdir,
+        device)
+    want_opt = expected_launches(opt_cfg, EVAL_WINDOWS, h, w)
+    emit("eval_val_opt_in", batch=EVAL_WINDOWS, fields=out["fields"],
+         fields_per_s=out["metrics"]["fields_per_sec"],
+         loader_wait_share=out["loader_wait_share"],
+         launches=opt_counts, launches_derived=want_opt,
+         metrics={k: v for k, v in opt_csv.items() if k.startswith("val/")})
+    check(out["model_config"] == opt_cfg, f"opt-in val built "
+                                          f"{out['model_config']}")
+    check(opt_counts == want_opt, f"opt-in val launches {opt_counts}, "
+                                  f"derived {want_opt}")
+    check(all(np.isfinite(v) for k, v in opt_csv.items()
+              if k.startswith("val/")), f"opt-in val metrics {opt_csv}")
+
+    # 7e. predict_dsec on the test recording, against the eval forward
+    from bflow_tpu_torch import predict_dsec
+    from bflow_tpu_torch.data.dsec.provider import DsecProvider
+    from bflow_tpu_torch.data.io import load_flow_png
+    from bflow_tpu_torch.train.checkpoint import restore_weights_only
+
+    sub = workdir / "submission"
+    kernels.reset_launch_counts()
+    out = predict_dsec.main(
+        [a for a in val_args(root, ckpt, 1, True, (), h, w)
+         if not a.startswith(("dataset=", "model=", "batch_size"))]
+        + [f"output_dir={sub}"], device=device)
+    pred_counts = kernels.launch_counts()
+    pngs = sorted(sub.glob("*/*.png"))
+    check(len(pngs) == EVAL_TEST_WINDOWS
+          and {p.parent.name for p in pngs} == {test_seq.name},
+          f"predict_dsec wrote {pngs}")
+    model = bt.RAFTSpline(cfg)
+    restore_weights_only(ckpt, model)
+    model = model.to(device).eval()
+    provider = DsecProvider({"path": str(root), "load_voxel_grid": True,
+                             "extended_voxel_grid": True,
+                             "normalize_voxel_grid": True,
+                             "height": h, "width": w}, cfg.nbins_context)
+    (_, test_ds), = provider.iter_test_sequences()
+    worst = 0.0
+    for i in range(len(test_ds)):
+        item = test_ds[i]
+        voxel = torch.from_numpy(item[K.EV_REPR.value])[None].to(device)
+        images = torch.from_numpy(item[K.IMG.value])[:, None].to(device)
+        _, up = model(voxel, images, test_mode=True)
+        flow = up.flow_at(1.0)[0].float().cpu().numpy()
+        dec, valid = load_flow_png(sub / test_seq.name /
+                                   f"{int(item[K.FILE_INDEX.value]):06d}.png")
+        check(dec.shape == (h, w, 2) and bool(valid.all()),
+              f"PNG {i}: shape {dec.shape}, valid {valid.mean()}")
+        worst = max(worst, float(np.abs(dec - flow).max()))
+    emit("eval_predict", pngs=len(pngs), fields_per_s=out["fields_per_sec"],
+         seconds=out["seconds"], launches=pred_counts,
+         max_abs_vs_eval_forward_px=worst, bound_px=1 / 128)
+    check(worst <= 1 / 128, f"predict_dsec PNGs vs the eval forward: {worst}")
+    check(pred_counts[klookup.NAME] == ITERS * EVAL_TEST_WINDOWS,
+          f"predict_dsec launches {pred_counts}")
+    emit("eval_phase", seconds=time.perf_counter() - t_phase)
+    return runs["uncached"]["launches"], opt_counts
 
 
 # ---------------------------------------------------------------------------
@@ -1182,6 +1564,9 @@ def main() -> int:
     ap.add_argument("--lookup-probe", action="store_true",
                     help="after the build, time the lookup kernels' probe "
                          "variants (phase lookup_probe), and stop")
+    ap.add_argument("--eval-only", action="store_true",
+                    help="after the build, run only the evaluation path "
+                         "(phase 7), and stop")
     ap.add_argument("--profile", metavar="DIR",
                     help="write the chrome traces of the profiled forward "
                          "and train step into DIR")
@@ -1215,11 +1600,14 @@ def main() -> int:
          lookup_fwd_variants=lookup_fwd_resources(
              report[klookup.NAME]["ptxas"]))
 
-    if args.conv_sweep or args.lookup_probe:
+    if args.conv_sweep or args.lookup_probe or args.eval_only:
         if args.conv_sweep:
             conv_sweep(args.seed)
         if args.lookup_probe:
             lookup_probe(args.seed)
+        if args.eval_only:
+            with tempfile.TemporaryDirectory() as tmp:
+                eval_phase(Path(tmp), args.seed)
         print(json.dumps({"ok": True, "device": {
             "platform": "gpu", "kind": kind,
             "count": torch.cuda.device_count()}}), flush=True)
@@ -1540,7 +1928,7 @@ def main() -> int:
           f"conv-kernel step launches {conv_counts}, derived {want_conv}")
     check(worst <= bound, f"conv-kernel step gradients vs plain: {worst}")
 
-    # 7. train parity: kernel path vs gather path, one step's gradients
+    # 6d. train parity: kernel path vs gather path, one step's gradients
     for precision, iters, damp, bound in (("float32", 2, False, 1e-4),
                                           ("bfloat16", ITERS, True, 5e-2)):
         c = dataclasses.replace(tcfg, corr_precision=precision,
@@ -1554,6 +1942,11 @@ def main() -> int:
              bounds={"loss": loss_bound, "grad": bound})
         check(loss_rel <= loss_bound and grad_worst <= bound,
               f"train parity {precision}: {loss_rel} {grad_worst}")
+
+    # 7. the DSEC evaluation path: recordings written to disk, the device
+    # voxelizer, val and predict_dsec through their entry points
+    with tempfile.TemporaryDirectory() as tmp:
+        eval_counts, eval_opt_counts = eval_phase(Path(tmp), args.seed)
 
     # 8. kernels line: the lookups per iteration at the flagship shapes
     # (bf16; the backward also at the training shapes, f32), one launch
@@ -1573,6 +1966,7 @@ def main() -> int:
         "replaces": "bflow_tpu/ops/pallas/corr_lookup_v3.py:238",
         "launches": counts[klookup.NAME],
         "launches_train": train_counts[klookup.NAME],
+        "launches_eval": eval_counts[klookup.NAME],
         "max_abs_err": max(r["max_abs_err"] for r in per_pyr),
         "ms": fwd["ms"],
         "plain_ms": fwd["plain_ms"],
@@ -1586,6 +1980,7 @@ def main() -> int:
         "source": "bflow_tpu_torch/csrc/corr_lookup_bwd.cu",
         "replaces": "bflow_tpu/ops/pallas/corr_lookup_v3.py:542",
         "launches": train_counts[klookup.BWD_NAME],
+        "launches_eval": eval_counts[klookup.BWD_NAME],
         "max_abs_err": max(max(r["dvol_max_abs_err"],
                                r["dcoords_max_abs_err"])
                            for r in per_pyr_bwd.values()),
@@ -1601,6 +1996,7 @@ def main() -> int:
         "variant": "quant=True (lookup_level_slab_q8, :794): pallas_q8's "
                    "int8 levels in the all-level kernel's table",
         "launches": opt_counts[klookup.NAME],
+        "launches_eval": eval_opt_counts[klookup.NAME],
         "max_abs_err": max(q8_mixed["max_abs_err"], q8_only["max_abs_err"]),
         "ms": q8_only["ms"],
         "plain_ms": q8_only["plain_ms"],
@@ -1612,9 +2008,9 @@ def main() -> int:
         "opt_in_table": {k: q8_mixed[k] for k in (
             "ms", "plain_ms", "bound_ms", "x_bound", "bf16_levels_alone_ms")},
     }, conv_summary(kstem.NAME, "bflow_tpu/ops/pallas/stem_conv.py:114",
-                    per_conv[kstem.NAME], opt_counts),
+                    per_conv[kstem.NAME], opt_counts, eval_opt_counts),
         conv_summary(kconv.NAME, "bflow_tpu/ops/pallas/conv3x3.py:69",
-                     per_conv[kconv.NAME], opt_counts)]
+                     per_conv[kconv.NAME], opt_counts, eval_opt_counts)]
     print(json.dumps({"kernels": summary}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,
