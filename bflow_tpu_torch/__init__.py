@@ -11,9 +11,10 @@ run on the GPU unless the caller asks for the CPU:
     flow = up.flow_at(1.0)                           # (N, H, W, 2)
 
 On CPU tensors every kernel wrapper runs its plain PyTorch version.
-Evaluation on a DSEC root goes through ``python -m bflow_tpu_torch.val``
-and ``python -m bflow_tpu_torch.predict_dsec`` (the JAX package's CLI
-overrides; ``main(argv, device="cpu")`` from Python).
+Training goes through ``python -m bflow_tpu_torch.train``, evaluation
+(DSEC or MultiFlow) through ``python -m bflow_tpu_torch.val``, DSEC
+submissions through ``python -m bflow_tpu_torch.predict_dsec`` (the JAX
+package's CLI overrides; ``main(argv, device="cpu")`` from Python).
 """
 
 from __future__ import annotations

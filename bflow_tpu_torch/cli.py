@@ -1,5 +1,6 @@
-"""Helpers shared by the port's entry points (counterparts of the helpers
-of the JAX package's train.py): the config tree, the dataset provider, the
+"""Helpers shared by the port's entry points (`train`, `val`,
+`predict_dsec`; counterparts of the helpers of the JAX package's
+train.py): the config tree, the dataset provider (DSEC or MultiFlow), the
 model config from the composed config, MultiFlow's supervision times and
 the batch limits.
 """
@@ -23,9 +24,9 @@ def build_provider(config):
 
         return DsecProvider(config["dataset"], nbins_ctx)
     if name == "multiflow_regen":
-        raise NotImplementedError(
-            "dataset=multiflow_regen: the MultiFlow data layer is not ported "
-            "yet (it comes with the training CLI); the port evaluates DSEC")
+        from bflow_tpu_torch.data.multiflow2d.provider import MultiflowProvider
+
+        return MultiflowProvider(config["dataset"], nbins_ctx)
     raise NotImplementedError(name)
 
 

@@ -29,7 +29,8 @@ import numpy as np
 from bflow_tpu_torch.data.augmentor import FlowAugmentor
 from bflow_tpu_torch.data import hdf5
 from bflow_tpu_torch.data.eventslicer import EventSlicer
-from bflow_tpu_torch.data.io import h5_to_np_array, load_flow_png, np_array_to_h5
+from bflow_tpu_torch.data.io import (h5_to_np_array, h5py_lock, load_flow_png,
+                                    np_array_to_h5)
 from bflow_tpu_torch.data.keys import DataLoading as K, DataSetType
 from bflow_tpu_torch.data.representations import VoxelGrid, normalize_voxel_grid
 
@@ -114,8 +115,9 @@ class TwoStepSubSequence:
         if self._slicer is None:
             with self._open_lock:
                 if self._slicer is None:
-                    self._h5f = hdf5.open_file(self.ev_file)
-                    self._slicer = EventSlicer(self._h5f)
+                    with h5py_lock():
+                        self._h5f = hdf5.open_file(self.ev_file)
+                        self._slicer = EventSlicer(self._h5f)
 
     def _get_events(self, ts_from: int, ts_to: int):
         self._ensure_open()
@@ -126,7 +128,8 @@ class TwoStepSubSequence:
         ts_from = max(ts_from, start)
         ts_to = min(ts_to, final)
         assert ts_from < ts_to
-        ev = self._slicer.get_events(ts_from, ts_to)
+        with h5py_lock():
+            ev = self._slicer.get_events(ts_from, ts_to)
         assert ev is not None
         x, y = ev["x"], ev["y"]
         assert x.max() < self.width and y.max() < self.height

@@ -20,7 +20,9 @@ Threads: h5py serializes its calls, but libhdf5's error stack is not
 thread-safe, and the blosc path makes errors on purpose (an unknown filter
 on write, a missing one on read): under the threaded Loader the JAX
 package's cache IO fails (`H5Dwrite_chunk` errors) or corrupts the heap.
-Here every h5py access of a cache holds one lock; since h5py holds its
+Here every h5py access of the data layer (caches, events, flows) holds
+one lock, `h5py_lock`: an event read in one thread while another thread's
+cache IO raises its deliberate errors fails as well. Since h5py holds its
 own global lock during the IO anyway, this costs no parallelism.
 """
 
@@ -80,8 +82,9 @@ def _native_blosc():
         return None
 
 
-def _h5py_lock():
-    """The cache lock where h5py does the IO (the module docstring)."""
+def h5py_lock():
+    """The data layer's lock where h5py does the IO (the module docstring):
+    every h5py access of the events, flows and caches holds it."""
     if hdf5.h5py is None:
         return contextlib.nullcontext()
     return _H5PY_CACHE_LOCK
@@ -107,7 +110,7 @@ def np_array_to_h5(array: np.ndarray, outpath: Union[str, Path]) -> None:
     outpath = Path(outpath)
     assert outpath.suffix == ".h5"
     tmppath = outpath.with_suffix(f".tmp{os.getpid()}.{threading.get_ident()}.h5")
-    with _h5py_lock():
+    with h5py_lock():
         if cache_codec() == "blosc-zstd":
             nat = _native_blosc()
             with hdf5.h5py.File(str(tmppath), "w") as h5f:
@@ -135,7 +138,7 @@ def h5_to_np_array(inpath: Union[str, Path]) -> Optional[np.ndarray]:
     if not inpath.exists():
         return None
     try:
-        with _h5py_lock(), hdf5.open_file(inpath) as h5f:
+        with h5py_lock(), hdf5.open_file(inpath) as h5f:
             ds = h5f["voxel_grid"]
             try:
                 return np.asarray(ds)

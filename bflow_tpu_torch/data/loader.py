@@ -53,6 +53,22 @@ def _collate(items: list) -> Dict[str, Any]:
     return out
 
 
+def make_loader(dataset, kind: str = "threaded", **kw):
+    """Config-selectable input pipeline (`hardware.loader`): 'threaded'
+    is the thread-pool Loader below. 'grain', the JAX package's
+    multiprocess loader that shards by process across hosts, comes with
+    distribution (ROADMAP item 8) and raises here rather than quietly
+    becoming the threaded loader."""
+    if kind in (None, "threaded"):
+        return Loader(dataset, **kw)
+    if kind == "grain":
+        raise NotImplementedError(
+            "hardware.loader=grain: the multiprocess, process-sharded "
+            "loader comes with distribution (ROADMAP item 8); use "
+            "hardware.loader=threaded")
+    raise ValueError(f"unknown loader kind: {kind!r}")
+
+
 def _map(fn, batch):
     if isinstance(batch, dict):
         return {k: _map(fn, v) for k, v in batch.items()}
@@ -148,6 +164,13 @@ class Loader:
         return self.dataset[index]
 
     def __iter__(self) -> Iterator[Dict[str, Any]]:
+        return self.iterate()
+
+    def iterate(self, start: int = 0, end: Optional[int] = None
+                ) -> Iterator[Dict[str, Any]]:
+        """The epoch's batches ``start`` to ``end`` (a resumed run skips
+        the ones it has trained on, and a limited epoch the ones it will
+        not train on, without loading them)."""
         n = len(self.dataset)
         order = np.arange(n)
         if self.shuffle:
@@ -160,12 +183,23 @@ class Loader:
         nb = len(self)
         batches = [
             order[i * self.batch_size : (i + 1) * self.batch_size]
-            for i in range(nb)
+            for i in range(start, nb if end is None else min(end, nb))
         ]
 
         out_q: "queue.Queue" = queue.Queue(maxsize=self.prefetch)
         stop = threading.Event()
         device = self.device
+
+        def put(item) -> bool:
+            # a consumer that stops early (a break) never drains the
+            # queue: give up once it has gone, rather than block forever
+            while not stop.is_set():
+                try:
+                    out_q.put(item, timeout=0.1)
+                    return True
+                except queue.Full:
+                    pass
+            return False
 
         def producer():
             with ThreadPoolExecutor(self.num_workers) as pool:
@@ -176,11 +210,12 @@ class Loader:
                         batch = _collate(list(pool.map(self._fetch, idxs)))
                         if device is not None:
                             batch = pin(batch, device)
-                        out_q.put(batch)
                     except Exception as e:  # surface in consumer
-                        out_q.put(e)
+                        put(e)
                         return
-            out_q.put(None)
+                    if not put(batch):
+                        return
+            put(None)
 
         thread = threading.Thread(target=producer, daemon=True)
         thread.start()

@@ -6,7 +6,8 @@ metric improves (mode 'min' or 'max'), and ``meta.json`` keeps the best
 score, the monitor and the last step, so a restarted run keeps its best.
 ``restore_weights_only`` reads either a port checkpoint or a reference
 ``.ckpt`` (a Lightning file whose ``net.*`` keys are the port's own
-state_dict names).
+state_dict names); ``resolve_artifact_checkpoint`` finds the file that
+`wandb.artifact_name` names.
 """
 
 from __future__ import annotations
@@ -75,6 +76,44 @@ class CheckpointManager:
         state.load_state_dict(torch.load(path, map_location="cpu",
                                          weights_only=True))
         return state
+
+
+def resolve_artifact_checkpoint(wandb_cfg: Dict[str, Any], logger
+                                ) -> Optional[Path]:
+    """Resolve `wandb.artifact_name` to a local checkpoint path.
+
+    A local path is used directly (a port checkpoint or a reference
+    `.ckpt`); otherwise the logger downloads the artifact from
+    `artifact_runpath`, falling back to `wandb_runpath`. In a downloaded
+    directory a `.ckpt` file is preferred, then a port checkpoint (`.pt`),
+    then the first subdirectory.
+    """
+    name = wandb_cfg.get("artifact_name")
+    if not name:
+        return None
+    local = Path(name)
+    if local.exists():
+        return local
+    runpath = wandb_cfg.get("artifact_runpath") or wandb_cfg.get("wandb_runpath")
+    if runpath is None:
+        print(
+            "must specify wandb_runpath or artifact_runpath to restore a "
+            "checkpoint/artifact. Cannot load artifact."
+        )
+        return None
+    print(f"resuming checkpoint from runpath {runpath} and artifact {name}")
+    downloaded = logger.download_checkpoint(runpath, name)
+    if downloaded is None:
+        return None
+    downloaded = Path(downloaded)
+    if downloaded.is_file():
+        return downloaded
+    for pattern in ("**/*.ckpt", "**/*.pt"):
+        found = sorted(downloaded.glob(pattern))
+        if found:
+            return found[0]
+    subdirs = [p for p in sorted(downloaded.iterdir()) if p.is_dir()]
+    return subdirs[0] if subdirs else downloaded
 
 
 def restore_weights_only(path: str, model: torch.nn.Module

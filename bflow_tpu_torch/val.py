@@ -4,6 +4,9 @@ val.py), on the GPU unless the caller asks for the CPU:
   python -m bflow_tpu_torch.val dataset=dsec model=raft-spline \
       dataset.path=<DIR> checkpoint=<CKPT> batch_size=8 \
       [+experiment/dsec/raft_spline=E_I_LU4_BD2_lowpyramid] [model.*=...]
+  python -m bflow_tpu_torch.val dataset=multiflow_regen model=raft-spline \
+      dataset.path=<DIR> checkpoint=<CKPT> \
+      +experiment/multiflow/raft_spline=E_I_LU5_BD10_lowpyramid
 
   from bflow_tpu_torch import val
   val.main([...overrides...], device="cpu")
@@ -15,8 +18,10 @@ a reference Lightning `.ckpt` (its `net.*` keys are the port's names).
 The model is built from the config and the checkpoint loaded into it;
 batches come from the port's data layer through the Loader's pinned,
 non-blocking hand-off; metrics go to ./validation_logs/val_metrics.csv
-and are printed at the end. DSEC has no held-out validation split: its
-metrics are train-split inference without augmentation.
+and are printed at the end. MultiFlow evaluates its val split at the
+dataset's supervision timestamps (the val/*_multi metrics); DSEC has no
+held-out validation split: its metrics are train-split inference without
+augmentation.
 """
 
 from __future__ import annotations
@@ -36,6 +41,7 @@ def main(argv=None, device="cuda") -> Dict[str, Any]:
         backfill_correlation_bins,
         build_provider,
         model_config_from,
+        supervision_timestamps,
     )
     from bflow_tpu_torch.confsys import compose
     from bflow_tpu_torch.data.keys import DataLoading as K
@@ -55,16 +61,22 @@ def main(argv=None, device="cuda") -> Dict[str, Any]:
     cfg = model_config_from(config)
 
     val_ds = provider.get_val_dataset()
-    task = TaskConfig(dataset="dsec")
-    # The reference raises NotImplementedError here (no DSEC val split
-    # with ground truth); the provider serves the TRAIN sequences without
-    # augmentation instead. Label the output so nobody mistakes these
-    # numbers for held-out validation.
-    print(
-        "NOTE: DSEC has no held-out validation split — metrics "
-        "below are TRAIN-SPLIT inference (no augmentation), not "
-        "held-out validation."
-    )
+    if config["dataset"]["name"] == "multiflow_regen":
+        task = TaskConfig(
+            dataset="multiflow2d",
+            supervision_timestamps=supervision_timestamps(val_ds),
+        )
+    else:
+        task = TaskConfig(dataset="dsec")
+        # The reference raises NotImplementedError here (no DSEC val split
+        # with ground truth); the provider serves the TRAIN sequences
+        # without augmentation instead. Label the output so nobody
+        # mistakes these numbers for held-out validation.
+        print(
+            "NOTE: DSEC has no held-out validation split — metrics "
+            "below are TRAIN-SPLIT inference (no augmentation), not "
+            "held-out validation."
+        )
 
     # keep every sample: the tail batch has its own size
     loader = Loader(

@@ -2,7 +2,7 @@
 """Smoke run of the PyTorch port (bflow_tpu_torch) on one NVIDIA GPU.
 
     python3 chip_smoke.py [--profile DIR] [--seed N] [--conv-sweep]
-                          [--lookup-probe] [--eval-only]
+                          [--lookup-probe] [--eval-only] [--train-only]
 
 Run from the repository root, on a machine with a CUDA GPU and the CUDA
 toolkit (nvcc). Phases, each printing JSON lines:
@@ -68,12 +68,29 @@ toolkit (nvcc). Phases, each printing JSON lines:
                   12 / 9 / 138 per forward; (7e, eval_predict)
                   predict_dsec on the test recording: 4 PNGs within 1/128
                   px of the eval forward
+  9. train_cli    MultiFlow training through the port's own training CLI
+                  (bflow_tpu_torch.train.loop.main), E_I_LU5_BD10 at full
+                  width (41/25 bins, degree 10, 12 iterations, f32, B=3
+                  at 368x496), on fabricated 384x512 samples (6 train, 3
+                  val, ~10^6 events each) in a temporary directory:
+                  (train_cli_data) writing them; (train_cli) two epochs
+                  of two steps from a damped-head port checkpoint, logs
+                  and media every step, validation each epoch, best and
+                  last checkpoints, launch counts derived (12 + 12 per
+                  step, 12 per media or val forward), learning rates
+                  against a fresh OneCycle; (train_cli_resume) the rerun
+                  in the same run directory continues at step 4 to step
+                  6; (train_cli_plain) step 1 on the plain twins, loss
+                  within 1e-5; the two lookups at these shapes, degree-10
+                  flow_at against de Casteljau, a profile of one step
+                  (phase 9 runs after 7; the kernels line is printed last)
   8. kernels      one JSON line summing up every kernel
 and, as the last line, {"ok": true, "device": {...}}. Any failure exits
 nonzero before that line; so does a machine without CUDA. The profiles
 (torch.profiler: kernels by device time, idle share) always run; --profile
 DIR also writes their chrome traces into DIR.
---eval-only runs phases 1, 2 and 7 and stops. --conv-sweep runs phases
+--eval-only runs phases 1, 2 and 7 and stops; --train-only runs phases
+1, 2 and 9 and stops. --conv-sweep runs phases
 1 and 2, then times every tile variant of the conv
 kernels at every flagship conv shape beside the one the tile plan picks,
 and stops. --lookup-probe runs phases 1 and 2, then times the all-level
@@ -89,6 +106,7 @@ import contextlib
 import ctypes
 import dataclasses
 import json
+import os
 import re
 import statistics
 import subprocess
@@ -102,7 +120,11 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-import bflow_tpu_torch as bt
+# W&B stays off the network: the port's logger is a no-op under wandb's
+# own switch (wandb may be installed where there is no network)
+os.environ["WANDB_MODE"] = "disabled"
+
+import bflow_tpu_torch as bt  # noqa: E402
 from bflow_tpu_torch import kernels
 from bflow_tpu_torch.kernels import build as kbuild
 from bflow_tpu_torch.kernels import conv3x3 as kconv
@@ -343,28 +365,31 @@ def check_lookup_bwd_level(Tl, hl, wl, dtype, seed):
 PYRAMID_TARGETS = [(0, 1, 2, 3, 4), (3, 4), (3, 4), (3, 4)]
 
 
-def pyramid_inputs(n, h1, w1, dtype, seed, device="cuda"):
-    """A level table (the flagship's targets per level, (n, h1, w1)
-    queries, maps h1 x w1 halved per level) and base coords (5, n, h1, w1,
-    2): each query's own grid position plus a few pixels of flow, one in
+def pyramid_inputs(n, h1, w1, dtype, seed, device="cuda",
+                   targets=PYRAMID_TARGETS):
+    """A level table (`targets` per level, the flagship's by default;
+    (n, h1, w1) queries, maps h1 x w1 halved per level) and base coords
+    (T, n, h1, w1, 2), T base targets: each query's own grid position
+    plus a few pixels of flow, one in
     ten far outside the map (+-1e4), one in ten just below a multiple of
     8 (just below an integer at every level: the kernels' rounding
     edge)."""
     g = torch.Generator(device=device).manual_seed(seed)
+    T = 1 + max(max(idx) for idx in targets)
     table = []
-    for lvl, idx in enumerate(PYRAMID_TARGETS):
+    for lvl, idx in enumerate(targets):
         vol = torch.randn(len(idx), n, h1, w1, h1 >> lvl, w1 >> lvl,
                           generator=g, device=device).to(dtype)
         table.append(klookup.TableLevel(vol, idx, lvl))
     ii, jj = torch.meshgrid(torch.arange(h1, device=device),
                             torch.arange(w1, device=device), indexing="ij")
-    base = torch.stack([jj, ii], dim=-1).float().expand(5, n, h1, w1, 2)
-    c = base + 3.0 * torch.randn(5, n, h1, w1, 2, generator=g, device=device)
-    far = torch.rand(5, n, h1, w1, 1, generator=g, device=device) < 0.1
-    sign = torch.where(torch.rand(5, n, h1, w1, 2, generator=g,
+    base = torch.stack([jj, ii], dim=-1).float().expand(T, n, h1, w1, 2)
+    c = base + 3.0 * torch.randn(T, n, h1, w1, 2, generator=g, device=device)
+    far = torch.rand(T, n, h1, w1, 1, generator=g, device=device) < 0.1
+    sign = torch.where(torch.rand(T, n, h1, w1, 2, generator=g,
                                   device=device) < 0.5, -1.0, 1.0)
     c = torch.where(far, 1e4 * sign, c)
-    edge = torch.rand(5, n, h1, w1, 1, generator=g, device=device) < 0.1
+    edge = torch.rand(T, n, h1, w1, 1, generator=g, device=device) < 0.1
     below = torch.nextafter(torch.round(c / 8) * 8,
                             torch.full_like(c, -float("inf")))
     return table, torch.where(edge, below, c).contiguous()
@@ -423,12 +448,13 @@ def _table_record(table, coords, timing):
     return rec
 
 
-def check_lookup_pyramid(n, h1, w1, dtype, seed, timing=True):
+def check_lookup_pyramid(n, h1, w1, dtype, seed, timing=True,
+                         targets=PYRAMID_TARGETS):
     """The all-level forward kernel (one launch) vs its plain twin, exact;
     each level's channels vs the one-level entry; returns the phase-3
     record with the time per iteration, the bound summed over levels and
     grid_sample summed over levels."""
-    table, coords = pyramid_inputs(n, h1, w1, dtype, seed)
+    table, coords = pyramid_inputs(n, h1, w1, dtype, seed, targets=targets)
     rec = _table_record(table, coords, timing=False)
     if not timing:
         return rec
@@ -465,7 +491,7 @@ def check_lookup_pyramid(n, h1, w1, dtype, seed, timing=True):
 
 
 def check_lookup_pyramid_bwd(n, h1, w1, dtype, seed, iters=ITERS,
-                             timing=True):
+                             timing=True, targets=PYRAMID_TARGETS):
     """The all-level backward kernel: `iters` iterations' cotangents, last
     iteration first, accumulated into one f32 dVol buffer per level, twice
     (bitwise equal), against the accumulating plain twin and against the
@@ -473,7 +499,7 @@ def check_lookup_pyramid_bwd(n, h1, w1, dtype, seed, iters=ITERS,
     equal exactly); dcoords of every iteration against the twin's. Returns
     the phase-3b record with the time per iteration, the one zeroing per
     step, the bound and the grid_sample VJP summed over levels."""
-    table, coords = pyramid_inputs(n, h1, w1, dtype, seed)
+    table, coords = pyramid_inputs(n, h1, w1, dtype, seed, targets=targets)
     C = sum(len(lv.targets) for lv in table) * 81
     gen = torch.Generator(device="cuda").manual_seed(seed + 100)
     gs = [torch.randn(n, h1, w1, C, generator=gen, device="cuda").to(dtype)
@@ -764,14 +790,14 @@ def train_batch(seed: int, device="cuda"):
     return {k: torch.from_numpy(v).to(device) for k, v in b.items()}
 
 
-def build_corr_pyramid_shapes(cfg):
-    """The lookup volumes of the train batch, per level, as the pyramid
+def build_corr_pyramid_shapes(cfg, n=TRAIN_B, h=TRAIN_H, w=TRAIN_W):
+    """The lookup volumes of a train batch, per level, as the pyramid
     holds them (Tl, N, h1, w1, hl, wl): the dVol accumulators are zeroed,
     and autograd would sum per-iteration dVols, in this shape."""
     from bflow_tpu_torch.models.corr import level_target_indices
 
-    h, w = TRAIN_H // 8, TRAIN_W // 8
-    return [(len(idx), TRAIN_B, h, w, h >> lvl, w >> lvl)
+    h, w = h // 8, w // 8
+    return [(len(idx), n, h, w, h >> lvl, w >> lvl)
             for lvl, idx in enumerate(
                 level_target_indices(cfg.levels_per_target))]
 
@@ -1552,6 +1578,369 @@ def eval_phase(workdir, seed: int, device="cuda", h: int = H, w: int = W,
 
 
 # ---------------------------------------------------------------------------
+# phase 9: MultiFlow training through the port's own training CLI
+
+
+MF_EXPERIMENT = "+experiment/multiflow/raft_spline=E_I_LU5_BD10_lowpyramid"
+MF_H, MF_W = 384, 512  # MultiFlow2D's native frames
+MF_CROP = (368, 496)  # its training crop
+MF_TRAIN, MF_VAL, MF_BATCH = 6, 3, 3
+MF_EVENTS = 1_000_000
+# the experiment's lookup table: event targets 8..40 at depths 1,1,1,1,4
+# and the frame at depth 4, so 6 base targets and 6 + 2 + 2 + 2 slots
+MF_PYRAMID_TARGETS = [(0, 1, 2, 3, 4, 5), (4, 5), (4, 5), (4, 5)]
+MF_TRAINING = {"learning_rate": 1e-4, "weight_decay": 1e-4,
+               "gradient_clip_val": 1,
+               "lr_scheduler": {"use": True, "total_steps": 6,
+                                "pct_start": 0.01}}
+
+
+def write_multiflow_sample(sample, seed: int, n_events: int = MF_EVENTS,
+                           h: int = MF_H, w: int = MF_W) -> int:
+    """One sample in MultiFlow2D's directory contract (the data layer's,
+    as tests/fixtures.py:make_multiflow_sample writes it), through the
+    port's own HDF5 writer where h5py is missing: events uniform in x, y
+    and t over [0, 1e6) us, random flow every 50 ms from 450 to 900 ms,
+    boundary frames at 400 and 900 ms. Returns the bytes written."""
+    from bflow_tpu_torch.data import hdf5
+
+    rng = np.random.default_rng(seed)
+    for d in ("events", "flow", "images"):
+        (sample / d).mkdir(parents=True)
+    hdf5.write_arrays(sample / "events" / "events.h5", {
+        "t": np.sort(rng.integers(0, 1_000_000, n_events)).astype(np.uint32),
+        "x": rng.integers(0, w, n_events).astype(np.uint16),
+        "y": rng.integers(0, h, n_events).astype(np.uint16),
+        "p": rng.integers(0, 2, n_events).astype(np.uint8)})
+    for ts in range(450_000, 900_001, 50_000):
+        hdf5.write_arrays(sample / "flow" / f"{ts:07d}.h5", {
+            "flow": rng.uniform(-6, 6, (h, w, 2)).astype(np.float32)})
+    for ts in (400_000, 900_000):
+        write_png(sample / "images" / f"{ts:07d}.png",
+                  rng.integers(0, 255, (h, w, 3)).astype(np.uint8))
+    return sum(p.stat().st_size for p in sample.rglob("*") if p.is_file())
+
+
+def with_overrides(args, extra):
+    """args with the keys of `extra` replaced by extra's values."""
+    keys = {e.split("=", 1)[0] for e in extra}
+    return [a for a in args if a.split("=", 1)[0] not in keys] + list(extra)
+
+
+def mf_train_args(root, out, ckpt, extra=()):
+    """The CLI overrides of phase 9: the experiment at full width, batch
+    3, two epochs of two batches, validation over the val split each
+    epoch, logs and media every step, from a port checkpoint's weights."""
+    return with_overrides(
+        ["dataset=multiflow_regen", "model=raft-spline",
+         f"dataset.path={root}", "wandb.group_name=smoke", MF_EXPERIMENT,
+         f"training.batch_size={MF_BATCH}", "training.max_epochs=2",
+         "training.max_steps=6", "training.limit_train_batches=2",
+         "training.limit_val_batches=1.0", "logging.log_every_n_steps=1",
+         f"logging.out_dir={out}", f"wandb.artifact_name={ckpt}",
+         "wandb.resume_only_weights=true"], extra)
+
+
+class media_capture:
+    """Within the block, what the media callbacks hand the W&B logger
+    (a no-op here: WANDB_MODE=disabled) is recorded: key, step, shape,
+    type and value range."""
+
+    def __enter__(self):
+        from bflow_tpu_torch.loggers.wandb_logger import WandbLogger
+
+        self.images, self._cls = [], WandbLogger
+        self._saved = WandbLogger.log_image
+
+        def log_image(logger, key, image, step, caption=""):
+            img = np.asarray(image)
+            self.images.append({"key": key, "step": step,
+                                "shape": list(img.shape),
+                                "dtype": str(img.dtype),
+                                "range": [int(img.min()), int(img.max())]})
+            self._saved(logger, key, image, step, caption)
+
+        WandbLogger.log_image = log_image
+        return self
+
+    def __exit__(self, *exc):
+        self._cls.log_image = self._saved
+
+
+def train_cli_run(args, device="cuda"):
+    """bflow_tpu_torch.train.loop.main once, launch counts reset just
+    before and read just after; its CSV rows read back."""
+    import csv
+
+    from bflow_tpu_torch.train import loop
+
+    kernels.reset_launch_counts()
+    out = loop.main(args, device=device)
+    if device == "cuda":
+        torch.cuda.synchronize()
+    counts = kernels.launch_counts()
+    with open(out["run_dir"] / "train_metrics.csv") as fh:
+        rows = [{k: float(v) for k, v in r.items() if v != ""}
+                for r in csv.DictReader(fh)]
+    return out, counts, rows
+
+
+def reference_lr(steps):
+    """The learning rate after each of `steps` scheduler steps, from a
+    fresh optimizer over the phase's training config."""
+    from bflow_tpu_torch.train.optimizer import build_optimizer
+
+    opt, sched = build_optimizer(MF_TRAINING, [torch.zeros(1)])
+    out = {}
+    for k in range(1, max(steps) + 1):
+        opt.step()
+        sched.step()
+        out[k] = opt.param_groups[0]["lr"]
+    return {k: out[k] for k in steps}
+
+
+def bezier_check(seed: int, ts, degree: int = 10):
+    """BezierCurves.flow_at at the supervision times on the card, at the
+    training crop, against de Casteljau's construction in float64 on the
+    host (an independent form of the Bernstein sum)."""
+    from bflow_tpu_torch.ops.bezier import BezierCurves
+
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    params = torch.randn(MF_BATCH, MF_CROP[0] // 8, MF_CROP[1] // 8, degree,
+                         2, generator=g, device="cuda")
+    got = BezierCurves(params).flow_at(ts).double().cpu()
+    p = params.double().cpu()
+    pts = torch.cat([torch.zeros_like(p[..., :1, :]), p], dim=-2)
+    want = []
+    for t in ts:
+        q = pts
+        while q.shape[-2] > 1:
+            q = (1 - t) * q[..., :-1, :] + t * q[..., 1:, :]
+        want.append(q[..., 0, :])
+    want = torch.stack(want)
+    err = ((got - want).abs().max() / want.abs().max()).item()
+    return {"degree": degree, "times": list(ts), "rel_err": err,
+            "bound": 1e-5, "ok": err <= 1e-5}
+
+
+def train_phase(workdir, seed: int, device="cuda", profile_dir=None):
+    """Phase 9: fabricate MultiFlow samples (9a), train through the CLI
+    with validation, checkpoints and media (9b), resume (9c), step 1 on
+    the plain twins (9d), the lookups at these shapes (9e), a profile of
+    one train step (9f), the numbers (9g). Returns the CLI run's launch
+    counts and the 9e records."""
+    t_phase = time.perf_counter()
+    root = workdir / "multiflow"
+    t0 = time.perf_counter()
+    nbytes = 0
+    for split, n, off in (("train", MF_TRAIN, 0), ("val", MF_VAL, 100)):
+        for i in range(n):
+            nbytes += write_multiflow_sample(root / split / f"seq_{i:04d}",
+                                             seed + off + i)
+    emit("train_cli_data", samples={"train": MF_TRAIN, "val": MF_VAL},
+         events_per_sample=MF_EVENTS, height=MF_H, width=MF_W, bytes=nbytes,
+         seconds=time.perf_counter() - t0)
+
+    # 9b. two epochs of two steps, validation each epoch, from a damped
+    # head (undamped, the random-init recurrence diverges over 12 it.)
+    from bflow_tpu_torch.cli import (CONFIG_DIR, backfill_correlation_bins,
+                                     build_provider, model_config_from,
+                                     supervision_timestamps)
+    from bflow_tpu_torch.confsys import compose
+
+    runs = workdir / "runs"
+    ckpt = workdir / "multiflow_damped.pt"
+    config = compose(CONFIG_DIR, "train", mf_train_args(root, runs, ckpt))
+    backfill_correlation_bins(config, build_provider(config))
+    cfg = model_config_from(config)
+    model = damp_head(bt.build_model(cfg, device=device, seed=seed))
+    torch.save({"model": model.state_dict()}, ckpt)
+    del model
+    check((cfg.nbins_context, cfg.nbins_correlation, cfg.bezier_degree,
+           cfg.ev_target_indices, cfg.ev_levels, cfg.iters_train,
+           cfg.iters_test, cfg.corr_precision, cfg.compute_dtype,
+           cfg.use_images)
+          == (41, 25, 10, (8, 16, 24, 32, 40), (1, 1, 1, 1, 4), 12, 12,
+              "float32", "float32", True),
+          f"composed MultiFlow config {cfg}")
+    torch.cuda.reset_peak_memory_stats()
+    with media_capture() as media:
+        out, counts, rows = train_cli_run(mf_train_args(root, runs, ckpt),
+                                          device)
+    peak = torch.cuda.max_memory_allocated()
+    run_dir = out["run_dir"]
+    train_rows = [r for r in rows if "train/l1_multi_seq_loss" in r]
+    val_rows = [r for r in rows if "val/epe_multi" in r]
+    losses = [r["train/l1_multi_seq_loss"] for r in train_rows]
+    lrs = {int(r["step"]): r["learning_rate"] for r in train_rows}
+    want_lr = reference_lr(range(1, 7))
+    steps, logs, val_batches = 4, 4, 2
+    want = dict.fromkeys(kernels.KERNELS, 0)
+    want[klookup.NAME] = cfg.iters_train * (steps + logs + val_batches)
+    want[klookup.BWD_NAME] = cfg.iters_train * steps
+    meta = json.loads((run_dir / "ckpt" / "meta.json").read_text())
+    keys = sorted({(m["key"], m["step"]) for m in media.images})
+    strips = [m for m in media.images if m["key"] == "train/summary"]
+    step_ms = out["step_ms"]
+    rec = {
+        "config": "MultiFlow E_I_LU5_BD10_lowpyramid, f32, 12 iterations, "
+                  "composed by the CLI",
+        "batch": MF_BATCH, "crop": list(MF_CROP), "steps": out["step"],
+        "losses": losses, "learning_rates": lrs,
+        "val_epe_multi": [r["val/epe_multi"] for r in val_rows],
+        "val_steps": [int(r["step"]) for r in val_rows],
+        "launches": counts, "launches_derived": want,
+        "checkpoints": sorted(p.name for p in (run_dir / "ckpt").iterdir()),
+        "meta": meta, "media": keys,
+        "media_strip_shape": strips[0]["shape"] if strips else None,
+        "media_ranges": {m["key"]: m["range"] for m in media.images},
+        "train_seconds": out["train_seconds"],
+        "log_seconds": out["log_seconds"],
+        "samples": out["samples"],
+        "samples_per_s": out["samples"] / out["train_seconds"],
+        "loader_wait_share": (out["loader_wait_seconds"]
+                              / out["train_seconds"]),
+        "device_step_ms": step_ms,
+        "device_step_ms_median": statistics.median(step_ms),
+        "val_fields": out["val_fields"], "val_seconds": out["val_seconds"],
+        "val_fields_per_s": out["val_fields"] / out["val_seconds"],
+        "max_memory_allocated": peak}
+    emit("train_cli", **rec)
+    check(out["step"] == 4 and len(losses) == 4
+          and all(np.isfinite(losses)), f"train losses {losses}")
+    check(all(abs(lrs[k] - want_lr[k]) <= 1e-12 * want_lr[k]
+              for k in range(1, 5)), f"learning rates {lrs} vs {want_lr}")
+    check(rec["val_steps"] == [2, 4]
+          and all(np.isfinite(rec["val_epe_multi"])),
+          f"validation rows {val_rows}")
+    check({"best.pt", "last.pt"} <= set(rec["checkpoints"])
+          and meta["last_step"] == 4
+          and meta["monitor"] == "val/epe_multi",
+          f"checkpoints {rec['checkpoints']}, {meta}")
+    check(counts == want, f"train CLI launches {counts}, derived {want} "
+                          f"({steps} steps, {logs} media forwards, "
+                          f"{val_batches} val batches)")
+    want_media = ({(k, s) for s in range(1, 5) for k in (
+        "train/summary", "train/bezier_trajectories", "train/gradients")}
+        | {(k, s) for s in (2, 4) for k in (
+            "val/summary_0", "val/bezier_trajectories_0")})
+    check(set(keys) == want_media, f"media {keys}")
+    check(all(m["dtype"] == "uint8" and m["shape"][-1] == 3
+              and m["range"][0] < m["range"][1] for m in media.images),
+          f"media images {media.images}")
+    check(rec["media_strip_shape"] == [MF_CROP[0], 5 * MF_CROP[1], 3],
+          f"summary strip {rec['media_strip_shape']}")
+    check(len(step_ms) == 4, f"{len(step_ms)} timed steps")
+
+    # 9c. resume in the same run directory: one more epoch, to step 6
+    out_r, counts_r, rows_r = train_cli_run(mf_train_args(
+        root, runs, ckpt, ["training.max_epochs=3"]), device)
+    lrs_r = {int(r["step"]): r["learning_rate"] for r in rows_r
+             if "learning_rate" in r}
+    meta_r = json.loads((run_dir / "ckpt" / "meta.json").read_text())
+    want_r = dict.fromkeys(kernels.KERNELS, 0)
+    want_r[klookup.NAME] = cfg.iters_train * (2 + 2 + 1)
+    want_r[klookup.BWD_NAME] = cfg.iters_train * 2
+    emit("train_cli_resume", steps=out_r["step"], samples=out_r["samples"],
+         learning_rates=lrs_r, reference_learning_rates=want_lr,
+         losses=[r["train/l1_multi_seq_loss"] for r in rows_r
+                 if "train/l1_multi_seq_loss" in r],
+         launches=counts_r, launches_derived=want_r, meta=meta_r)
+    check(out_r["step"] == 6 and out_r["samples"] == 2 * MF_BATCH
+          and sorted(lrs_r) == [5, 6],
+          f"resume: step {out_r['step']}, samples {out_r['samples']}, "
+          f"logged steps {sorted(lrs_r)}: it did not start at step 4")
+    check(all(abs(lrs_r[k] - want_lr[k]) <= 1e-12 * want_lr[k]
+              for k in (5, 6)), f"resumed learning rates {lrs_r}")
+    check(meta_r["last_step"] == 6 and counts_r == want_r,
+          f"resume: {meta_r}, launches {counts_r} vs {want_r}")
+
+    # 9d. step 1 again, every kernel on its plain twin
+    with plain_twins():
+        _, counts_p, rows_p = train_cli_run(mf_train_args(
+            root, workdir / "runs_plain", ckpt,
+            ["training.max_epochs=1", "training.limit_train_batches=1",
+             "training.limit_val_batches=0", "logging.only_numbers=true"]),
+            device)
+    loss_p = rows_p[0]["train/l1_multi_seq_loss"]
+    rel = abs(losses[0] - loss_p) / abs(loss_p)
+    emit("train_cli_plain", loss_kernels=losses[0], loss_plain=loss_p,
+         rel=rel, bound=1e-5, launches=counts_p)
+    check(rel <= 1e-5, f"step-1 loss vs the plain twins: {rel}")
+    check(not any(counts_p.values()), f"plain twins launched {counts_p}")
+
+    # 9e. the lookups at these shapes (f32, B=3 at 368x496: 46x62 queries,
+    # maps 46x62 .. 5x7), and degree 10 at the supervision times
+    n, h1, w1 = MF_BATCH, MF_CROP[0] // 8, MF_CROP[1] // 8
+    fwd = check_lookup_pyramid(n, h1, w1, torch.float32, seed,
+                               targets=MF_PYRAMID_TARGETS)
+    emit("kernel", name=klookup.NAME, shapes="multiflow", **fwd)
+    check(fwd["ok"], f"lookup forward at MultiFlow shapes: {fwd}")
+    bwd = check_lookup_pyramid_bwd(n, h1, w1, torch.float32, seed,
+                                   targets=MF_PYRAMID_TARGETS)
+    emit("kernel", name=klookup.BWD_NAME, shapes="multiflow", **bwd)
+    check(bwd["ok"], f"lookup backward at MultiFlow shapes: {bwd}")
+    bez = bezier_check(seed, [k / 10 for k in range(1, 11)])
+    emit("bezier_degree10", **bez)
+    check(bez["ok"], f"degree-10 flow_at vs de Casteljau: {bez}")
+
+    # 9f. one train step at these shapes under the profiler: the device's
+    # kernels by time and its idle share; one dVol zeroing per level, no
+    # dVol sum
+    from bflow_tpu_torch.data.loader import Loader
+    from bflow_tpu_torch.train import TaskConfig, TrainState, make_train_step
+    from bflow_tpu_torch.train.checkpoint import restore_weights_only
+
+    config = compose(CONFIG_DIR, "train", mf_train_args(root, runs, ckpt))
+    provider = build_provider(config)
+    train_ds = provider.get_train_dataset()
+    batch = next(Loader(train_ds, MF_BATCH, shuffle=True, num_workers=6,
+                        device=device).iterate(0, 1))
+    model = bt.RAFTSpline(cfg)
+    restore_weights_only(ckpt, model)
+    state = TrainState.create(model.to(device), MF_TRAINING)
+    task = TaskConfig("multiflow2d", multi_loss=True,
+                      supervision_timestamps=supervision_timestamps(train_ds))
+    step = make_train_step(model, task, state.optimizer, state.scheduler)
+    levels = build_corr_pyramid_shapes(cfg, MF_BATCH, *MF_CROP)
+    # the step alone (no Loader threads beside it), host clock around
+    # work ending in a synchronize: the idle share's denominator
+    alone = []
+    for i in range(5):
+        t0 = time.perf_counter()
+        step(batch)
+        torch.cuda.synchronize()
+        if i >= 2:
+            alone.append((time.perf_counter() - t0) * 1e3)
+    alone_ms = statistics.median(alone)
+    prof = profile_run(lambda: step(batch), alone_ms, profile_dir,
+                       "train_step_multiflow", vol_shapes=levels)
+    emit("profile", path="train_step_multiflow", step_alone_ms=alone,
+         **prof)
+    check(prof["lookup_fwd"]["calls"] == prof["lookup_bwd"]["calls"]
+          == cfg.iters_train and prof["dvol_zero"]["calls"] == len(levels)
+          and prof["dvol_sum"]["calls"] == 0,
+          f"profiled MultiFlow step: {prof['lookup_fwd']} / "
+          f"{prof['lookup_bwd']} lookups, {prof['dvol_zero']} zeroings, "
+          f"{prof['dvol_sum']} sums")
+    del model, state, step, batch
+
+    # 9g. the numbers
+    emit("train_phase", seconds=time.perf_counter() - t_phase,
+         samples_per_s=rec["samples_per_s"],
+         loader_wait_share=rec["loader_wait_share"],
+         log_share=rec["log_seconds"] / rec["train_seconds"],
+         device_step_ms_median=rec["device_step_ms_median"],
+         step_alone_ms=alone_ms, step_kernel_ms=prof["kernel_ms"],
+         max_memory_allocated=peak,
+         val_fields_per_s=rec["val_fields_per_s"],
+         lookup_ms={"forward": fwd["ms"], "backward": bwd["ms"]},
+         x_bound={"forward": fwd["ms"] / fwd["bound_ms"],
+                  "backward": bwd["ms"] / bwd["bound_ms"]})
+    return counts, fwd, bwd
+
+
+# ---------------------------------------------------------------------------
 
 
 def main() -> int:
@@ -1567,6 +1956,9 @@ def main() -> int:
     ap.add_argument("--eval-only", action="store_true",
                     help="after the build, run only the evaluation path "
                          "(phase 7), and stop")
+    ap.add_argument("--train-only", action="store_true",
+                    help="after the build, run only MultiFlow training "
+                         "through the training CLI (phase 9), and stop")
     ap.add_argument("--profile", metavar="DIR",
                     help="write the chrome traces of the profiled forward "
                          "and train step into DIR")
@@ -1600,7 +1992,8 @@ def main() -> int:
          lookup_fwd_variants=lookup_fwd_resources(
              report[klookup.NAME]["ptxas"]))
 
-    if args.conv_sweep or args.lookup_probe or args.eval_only:
+    if (args.conv_sweep or args.lookup_probe or args.eval_only
+            or args.train_only):
         if args.conv_sweep:
             conv_sweep(args.seed)
         if args.lookup_probe:
@@ -1608,6 +2001,9 @@ def main() -> int:
         if args.eval_only:
             with tempfile.TemporaryDirectory() as tmp:
                 eval_phase(Path(tmp), args.seed)
+        if args.train_only:
+            with tempfile.TemporaryDirectory() as tmp:
+                train_phase(Path(tmp), args.seed, profile_dir=args.profile)
         print(json.dumps({"ok": True, "device": {
             "platform": "gpu", "kind": kind,
             "count": torch.cuda.device_count()}}), flush=True)
@@ -1948,6 +2344,13 @@ def main() -> int:
     with tempfile.TemporaryDirectory() as tmp:
         eval_counts, eval_opt_counts = eval_phase(Path(tmp), args.seed)
 
+    # 9. MultiFlow training through the training CLI: fabricated samples,
+    # two epochs with validation, checkpoints and media, the resume, step 1
+    # on the plain twins, the lookups at these shapes
+    with tempfile.TemporaryDirectory() as tmp:
+        mf_counts, mf_fwd, mf_bwd = train_phase(Path(tmp), args.seed,
+                                                profile_dir=args.profile)
+
     # 8. kernels line: the lookups per iteration at the flagship shapes
     # (bf16; the backward also at the training shapes, f32), one launch
     # for every level; the convs per forward, the sum over their shapes of
@@ -1959,6 +2362,14 @@ def main() -> int:
         return {k: r[k] for k in ("ms", "zero_ms_per_step", "plain_ms",
                                   "bound_ms", "library_ms")}
 
+    def multiflow(r, err_keys):
+        return {"max_abs_err": max(r[k] for k in err_keys),
+                **{k: r[k] for k in ("ms", "plain_ms", "bound_ms",
+                                     "library_ms", "queries", "dtype")},
+                "x_bound": r["ms"] / r["bound_ms"],
+                "per": "iteration, 12 slots over four levels, MultiFlow "
+                       "training shapes (f32, B=3 at 368x496)"}
+
     summary = [{
         "name": klookup.NAME,
         "route": "cuda",
@@ -1967,13 +2378,15 @@ def main() -> int:
         "launches": counts[klookup.NAME],
         "launches_train": train_counts[klookup.NAME],
         "launches_eval": eval_counts[klookup.NAME],
-        "max_abs_err": max(r["max_abs_err"] for r in per_pyr),
+        "launches_train_multiflow": mf_counts[klookup.NAME],
+        "max_abs_err": max(r["max_abs_err"] for r in per_pyr + [mf_fwd]),
         "ms": fwd["ms"],
         "plain_ms": fwd["plain_ms"],
         "bound_ms": fwd["bound_ms"],
         "bound_by": "bytes",
         "library_ms": fwd["library_ms"],
         "per": "iteration, all four levels, flagship bf16",
+        "multiflow": multiflow(mf_fwd, ["max_abs_err"]),
     }, {
         "name": klookup.BWD_NAME,
         "route": "cuda",
@@ -1981,13 +2394,16 @@ def main() -> int:
         "replaces": "bflow_tpu/ops/pallas/corr_lookup_v3.py:542",
         "launches": train_counts[klookup.BWD_NAME],
         "launches_eval": eval_counts[klookup.BWD_NAME],
+        "launches_train_multiflow": mf_counts[klookup.BWD_NAME],
         "max_abs_err": max(max(r["dvol_max_abs_err"],
                                r["dcoords_max_abs_err"])
-                           for r in per_pyr_bwd.values()),
+                           for r in [*per_pyr_bwd.values(), mf_bwd]),
         **bwd_fields(bwd),
         "bound_by": "bytes",
         "per": "iteration, all four levels, flagship bf16",
         "train_f32": bwd_fields(per_pyr_bwd["train"]),
+        "multiflow": multiflow(mf_bwd, ["dvol_max_abs_err",
+                                        "dcoords_max_abs_err"]),
     }, {
         "name": f"{klookup.NAME} (int8 levels)",
         "route": "cuda",

@@ -5,7 +5,8 @@ scripts/predict_dsec.py).
 
 Bounds: the config tree byte-identical, composed configs and model
 configs equal; `val` on the CPU (f32, 5 bins, 2 iterations, a reference
-style `.ckpt`, two batches of 2) logs val/* metrics within
+style `.ckpt`, two batches of 2; and on MultiFlow samples, 6 bins, degree
+2, a batch of 2 and a tail of 1) logs val/* metrics within
 1e-4 relative of the JAX val.py's on the same weights and recordings (the
 f32 forward's bound, tests/test_torch_model.py); `predict_dsec` writes one
 PNG per window, each decoding within 1/128 px (one PNG quantum) of the JAX
@@ -137,33 +138,77 @@ def test_limit_batches_matches_jax():
 
 @pytest.mark.parametrize("every_ms", [50, 100])
 def test_supervision_timestamps_matches_jax(tmp_path, every_ms):
-    """On a JAX MultiFlow val dataset (the port's MultiFlow data layer
-    comes with the training CLI; the helper reads only the dataset's
-    samples)."""
-    from bflow_tpu.data.multiflow2d.provider import MultiflowProvider
+    """The port's helper on the port's MultiFlow val dataset, the JAX
+    one on the JAX package's."""
+    from bflow_tpu.data.multiflow2d.provider import (
+        MultiflowProvider as JaxMultiflowProvider)
+    from bflow_tpu_torch.data.multiflow2d.provider import MultiflowProvider
     from fixtures import make_multiflow_sample
     from train import supervision_timestamps as jax_supervision_timestamps
 
     for split in ("train", "val"):
         make_multiflow_sample(tmp_path / split, "seq_0001", seed=1)
-    ds = MultiflowProvider({
+    params = {
         "path": str(tmp_path), "load_voxel_grid": False,
         "normalize_voxel_grid": True, "extended_voxel_grid": True,
         "flow_every_n_ms": every_ms, "downsample": False,
         "photo_augm": False, "orig_hw": (32, 48), "crop_hw": (16, 24),
-    }, nbins_context=6).get_val_dataset()
-    want = jax_supervision_timestamps(ds)
+    }
+    want = jax_supervision_timestamps(
+        JaxMultiflowProvider(params, nbins_context=6).get_val_dataset())
     assert len(want) == 500 // every_ms
-    assert cli.supervision_timestamps(ds) == want
+    assert cli.supervision_timestamps(
+        MultiflowProvider(params, nbins_context=6).get_val_dataset()) == want
 
 
-def test_multiflow_val_not_ported_yet():
+def test_multiflow_val_cli_matches_jax(tmp_path, monkeypatch):
+    """MultiFlow val (72x104 samples, 6 bins, degree 2, 1 iteration, a
+    batch of 2 and a tail of 1) from one reference-style .ckpt: the
+    val/* metrics at the supervision timestamps within 1e-4 relative."""
+    import val as jax_val
+
     from bflow_tpu_torch import val
+    from fixtures import make_multiflow_sample
 
-    with pytest.raises(NotImplementedError, match="MultiFlow"):
-        val.main(["dataset=multiflow_regen", "model=raft-spline",
-                  "dataset.path=/nowhere", "checkpoint=/c.pt"],
-                 device="cpu")
+    root = tmp_path / "mf"
+    for split, n in (("train", 1), ("val", 3)):
+        for i in range(n):
+            make_multiflow_sample(root / split, f"seq_{i:04d}", height=72,
+                                  width=104, n_events=20000, seed=9 + i)
+    args = ["dataset=multiflow_regen", "model=raft-spline",
+            f"dataset.path={root}", "checkpoint=x",
+            "+experiment/multiflow/raft_spline=E_I_LU5_BD10_lowpyramid",
+            "model.num_bins.context=6", "model.num_bins.correlation=4",
+            "model.bezier_degree=2",
+            "model.correlation.ev.target_indices=[1,3,5]",
+            "model.correlation.ev.levels=[1,1,2]", "model.num_iter.test=1",
+            "dataset.flow_every_n_ms=100", "dataset.orig_hw=[72,104]",
+            "dataset.crop_hw=[64,96]", "batch_size=2",
+            "hardware.num_workers=2", "dataset.load_voxel_grid=false"]
+    config = compose(cli.CONFIG_DIR, "val", args)
+    model = bt.build_model(cli.model_config_from(config), "cpu", seed=5)
+    ckpt = tmp_path / "released_style.ckpt"
+    torch.save({"state_dict": {f"net.{k}": v
+                               for k, v in model.state_dict().items()}},
+               str(ckpt))
+    args[3] = f"checkpoint={ckpt}"
+    (tmp_path / "port").mkdir()
+    (tmp_path / "jax").mkdir()
+    monkeypatch.chdir(tmp_path / "port")
+    out = val.main(args, device="cpu")
+    got = read_csv(tmp_path / "port" / "validation_logs" / "val_metrics.csv")
+    monkeypatch.chdir(tmp_path / "jax")
+    jax_val.main(args)
+    want = read_csv(tmp_path / "jax" / "validation_logs" / "val_metrics.csv")
+    assert sorted(got) == sorted(want)
+    keys = [k for k in want if k.startswith("val/")]
+    assert {"val/epe_multi", "val/ae_multi", "val/epe_multi_lin",
+            "val/epe"} <= set(keys)
+    for k in keys:
+        assert abs(got[k] - want[k]) <= 1e-4 * max(abs(want[k]), 1e-6), (
+            k, got[k], want[k])
+    assert out["fields"] == 3
+    assert out["model_config"].bezier_degree == 2
 
 
 def test_val_cuda_without_cuda_raises(monkeypatch):
