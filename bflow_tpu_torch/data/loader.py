@@ -55,18 +55,25 @@ def _collate(items: list) -> Dict[str, Any]:
 
 def make_loader(dataset, kind: str = "threaded", **kw):
     """Config-selectable input pipeline (`hardware.loader`): 'threaded'
-    is the thread-pool Loader below. 'grain', the JAX package's
-    multiprocess loader that shards by process across hosts, comes with
-    distribution (ROADMAP item 8) and raises here rather than quietly
-    becoming the threaded loader."""
+    is the thread-pool Loader below, 'grain' the worker-process loader
+    of data/grain_loader.py (the value keeps the JAX package's name).
+    Both take the same arguments and yield the same batches."""
     if kind in (None, "threaded"):
         return Loader(dataset, **kw)
     if kind == "grain":
-        raise NotImplementedError(
-            "hardware.loader=grain: the multiprocess, process-sharded "
-            "loader comes with distribution (ROADMAP item 8); use "
-            "hardware.loader=threaded")
+        from bflow_tpu_torch.data.grain_loader import ProcessLoader
+
+        return ProcessLoader(dataset, **kw)
     raise ValueError(f"unknown loader kind: {kind!r}")
+
+
+def fetch(dataset, seed: int, epoch: int, index: int) -> Dict[str, Any]:
+    """Item ``index`` of the epoch, drawing from its own RNG."""
+    rng = np.random.default_rng(np.random.SeedSequence((seed, epoch, index)))
+    get_item = getattr(dataset, "get_item", None)
+    if get_item is not None:
+        return get_item(int(index), rng)
+    return dataset[int(index)]
 
 
 def _map(fn, batch):
@@ -155,22 +162,14 @@ class Loader:
         self.epoch = epoch
 
     def _fetch(self, index: int) -> Dict[str, Any]:
-        rng = np.random.default_rng(
-            np.random.SeedSequence((self.seed, self.epoch, index))
-        )
-        get_item = getattr(self.dataset, "get_item", None)
-        if get_item is not None:
-            return get_item(index, rng)
-        return self.dataset[index]
+        return fetch(self.dataset, self.seed, self.epoch, index)
 
     def __iter__(self) -> Iterator[Dict[str, Any]]:
         return self.iterate()
 
-    def iterate(self, start: int = 0, end: Optional[int] = None
-                ) -> Iterator[Dict[str, Any]]:
-        """The epoch's batches ``start`` to ``end`` (a resumed run skips
-        the ones it has trained on, and a limited epoch the ones it will
-        not train on, without loading them)."""
+    def _batches(self, start: int, end: Optional[int]) -> list:
+        """The dataset indices of the epoch's batches ``start`` to
+        ``end``."""
         n = len(self.dataset)
         order = np.arange(n)
         if self.shuffle:
@@ -181,10 +180,17 @@ class Loader:
             rank, world = self.shard
             order = order[rank :: world][: self._epoch_len()]
         nb = len(self)
-        batches = [
+        return [
             order[i * self.batch_size : (i + 1) * self.batch_size]
             for i in range(start, nb if end is None else min(end, nb))
         ]
+
+    def iterate(self, start: int = 0, end: Optional[int] = None
+                ) -> Iterator[Dict[str, Any]]:
+        """The epoch's batches ``start`` to ``end`` (a resumed run skips
+        the ones it has trained on, and a limited epoch the ones it will
+        not train on, without loading them)."""
+        batches = self._batches(start, end)
 
         out_q: "queue.Queue" = queue.Queue(maxsize=self.prefetch)
         stop = threading.Event()

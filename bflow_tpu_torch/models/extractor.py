@@ -32,6 +32,7 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from bflow_tpu_torch.kernels import conv3x3, stem_conv
+from bflow_tpu_torch.parallel.distributed import all_reduce_sum, is_initialized
 
 # std of a standard normal truncated to [-2, 2]: flax's variance_scaling
 # divides by it so that the truncated draw keeps the requested variance
@@ -136,7 +137,14 @@ class BatchNorm(nn.BatchNorm2d):
     normalizes with the batch's biased statistics in f32 and moves the
     running statistics by momentum 0.1 toward the batch's mean and its
     *biased* variance, as flax does. (nn.BatchNorm2d's own update would
-    use the unbiased variance, so running_var is updated here by hand.)"""
+    use the unbiased variance, so running_var is updated here by hand.)
+
+    Under a process group the batch is the global one, as flax sees it
+    on a sharded array: each rank sums x and x^2 per channel over its
+    slice, one all-reduce of the packed sums and count gives flax's
+    mean = E[x] and var = max(0, E[x^2] - E[x]^2), and the gradient
+    reaches the other ranks' samples through the all-reduce's backward.
+    (nn.SyncBatchNorm would also move toward the unbiased variance.)"""
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         xf = x.float()
@@ -144,6 +152,8 @@ class BatchNorm(nn.BatchNorm2d):
             return F.batch_norm(xf, self.running_mean, self.running_var,
                                 self.weight, self.bias, False, 0.0,
                                 self.eps).to(x.dtype)
+        if is_initialized():
+            return self._global_batch(xf).to(x.dtype)
         with torch.no_grad():
             var, mean = torch.var_mean(xf, dim=(0, 2, 3), correction=0)
             m = self.momentum
@@ -152,6 +162,23 @@ class BatchNorm(nn.BatchNorm2d):
             self.num_batches_tracked.add_(1)
         return F.batch_norm(xf, None, None, self.weight, self.bias, True,
                             0.0, self.eps).to(x.dtype)
+
+    def _global_batch(self, xf: torch.Tensor) -> torch.Tensor:
+        c = xf.shape[1]
+        count = xf.new_full((1,), xf.numel() // c)
+        sums = all_reduce_sum(torch.cat(
+            [xf.sum(dim=(0, 2, 3)), xf.square().sum(dim=(0, 2, 3)), count]))
+        n = sums[2 * c]
+        mean = sums[:c] / n
+        var = torch.clamp(sums[c:2 * c] / n - mean.square(), min=0.0)
+        with torch.no_grad():
+            m = self.momentum
+            self.running_mean.mul_(1.0 - m).add_(m * mean)
+            self.running_var.mul_(1.0 - m).add_(m * var)
+            self.num_batches_tracked.add_(1)
+        scale = self.weight * torch.rsqrt(var + self.eps)
+        return ((xf - mean[None, :, None, None]) * scale[None, :, None, None]
+                + self.bias[None, :, None, None])
 
 
 class InstanceNorm(nn.Module):

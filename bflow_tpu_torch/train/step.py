@@ -9,6 +9,15 @@ step), and one scheduler step. Metrics stay on the device as
 accumulate them there and read them back in one transfer, so a train loop
 need not synchronize with the device every step.
 
+Under a process group (bflow_tpu_torch.parallel) the step is the JAX
+package's step over the global batch, of which each rank holds a slice:
+the forward runs through a DistributedDataParallel wrapper of the model
+(the gradients the clamp, grad_norm_tree and AdamW see are reduced), the
+BatchNorm statistics are global (models/extractor.py), each loss divides
+by the global valid count (utils/losses.py), and every metric's masked
+sums are all-reduced in one vector before the means (utils/metrics.py);
+the eval step reduces its metrics the same way.
+
 Batches use the JAX package's keys and layouts: ``ev_repr`` (N, H, W,
 bins), ``img`` (2, N, H, W, 3), ``flow`` (N, H, W, 2) for DSEC or
 (M, N, H, W, 2) stacked over MultiFlow's M supervision times, and
@@ -18,14 +27,17 @@ bins), ``img`` (2, N, H, W, 3), ``flow`` (N, H, W, 2) for DSEC or
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Any, Dict, Iterable, Tuple
+from typing import Any, Dict, Iterable, Optional, Tuple
 
 import torch
 
 from bflow_tpu_torch.data.keys import DataLoading as K
 from bflow_tpu_torch.ops.bezier import BezierCurves
+from bflow_tpu_torch.parallel.distributed import is_initialized
+from bflow_tpu_torch.parallel.mesh import replicate
 from bflow_tpu_torch.utils import metrics as M
 from bflow_tpu_torch.utils.losses import (
+    data_parallel_count,
     l1_multi_seq_loss_masked,
     l1_seq_loss_masked,
 )
@@ -66,10 +78,10 @@ def grad_norm_tree(model: torch.nn.Module) -> Dict[str, torch.Tensor]:
 
 
 def _family_metrics(task: TaskConfig, prefix: str, preds_at, flow, valid
-                    ) -> Dict[str, M.MetricUpdate]:
+                    ) -> Dict[str, M.Metric]:
     """The metric dict of step.py for one family, from the final
     prediction: preds_at(t) is its flow at time t."""
-    out: Dict[str, M.MetricUpdate] = {}
+    out: Dict[str, M.Metric] = {}
     if task.dataset == "dsec":
         for k, v in M.single_flow_metrics(preds_at(1.0), flow,
                                           valid).items():
@@ -88,39 +100,68 @@ def _family_metrics(task: TaskConfig, prefix: str, preds_at, flow, valid
     return out
 
 
-def make_loss_fn(model: torch.nn.Module, task: TaskConfig):
+def make_loss_fn(model: torch.nn.Module, task: TaskConfig, forward=None):
     """loss_fn(batch) -> (loss, metrics): the train-mode forward over
     cfg.iters_train iterations and the family's sequence loss, as the JAX
-    train step's loss_fn (the metrics are detached)."""
+    train step's loss_fn (the metrics are detached). ``forward`` runs the
+    model (default: the model itself; the train step's DDP wrapper under
+    a process group, where the loss and metrics are the global batch's,
+    as the module docstring says)."""
     cfg = model.config
+    forward = model if forward is None else forward
 
     def loss_fn(batch):
         voxel, images, flow, valid = _unpack(batch, cfg.use_images)
-        preds = model(voxel, images, iters=cfg.iters_train, test_mode=False)
+        ranks = is_initialized()
+        preds = forward(voxel, images, iters=cfg.iters_train,
+                        test_mode=False)
         if task.dataset == "dsec":
+            count = data_parallel_count(flow, valid) if ranks else None
             flows = [p.flow_at(1.0) for p in preds]
-            loss = l1_seq_loss_masked(flows, flow, valid, task.gamma)
+            loss = l1_seq_loss_masked(flows, flow, valid, task.gamma, count)
             loss_key = "train/l1_seq_loss"
         else:
             ts = task.supervision_timestamps
             targets = [flow[i] for i in range(len(ts))]
+            # MultiFlow is unmasked and every time has the same pixels
+            count = data_parallel_count(targets[0]) if ranks else None
             flows_it = [[p.flow_at(t) for t in ts] for p in preds]
             if task.multi_loss:
-                loss = l1_multi_seq_loss_masked(flows_it, targets, None,
-                                                task.gamma)
+                loss = l1_multi_seq_loss_masked(
+                    flows_it, targets, None, task.gamma,
+                    None if count is None else [count] * len(ts))
                 loss_key = "train/l1_multi_seq_loss"
             else:
                 loss = l1_seq_loss_masked([row[-1] for row in flows_it],
-                                          targets[-1], None, task.gamma)
+                                          targets[-1], None, task.gamma,
+                                          count)
                 loss_key = "train/l1_seq_loss"
         with torch.no_grad():
             last = BezierCurves(preds[-1].params.detach())
-            metrics = {loss_key: (loss.detach(), loss.new_ones(()))}
+            metrics = {loss_key: M.scalar_metric(loss.detach())}
             metrics.update(_family_metrics(task, "train", last.flow_at,
                                            flow, valid))
+            if ranks:
+                metrics = M.global_metrics(metrics)
         return loss, metrics
 
     return loss_fn
+
+
+def data_parallel(model: torch.nn.Module) -> torch.nn.Module:
+    """The DDP wrapper a train step runs its forward through under a
+    process group. ``broadcast_buffers`` is off because every rank
+    computes the same global BatchNorm statistics; DDP's start-up sync
+    then leaves the buffers out (torch 2.11 has no switch that syncs them
+    at start-up alone), so ``replicate`` is the one start-up sync, of
+    rank 0's weights and statistics, and DDP's own is off."""
+    from torch.nn.parallel import DistributedDataParallel
+
+    dev = next(model.parameters()).device
+    replicate(model)
+    return DistributedDataParallel(
+        model, device_ids=[dev.index] if dev.type == "cuda" else None,
+        broadcast_buffers=False, init_sync=False)
 
 
 def make_train_step(model: torch.nn.Module, task: TaskConfig,
@@ -130,8 +171,10 @@ def make_train_step(model: torch.nn.Module, task: TaskConfig,
     optimizer and scheduler. Returns the metrics dict, or with
     ``metric_acc`` (from init_metric_acc) the accumulator with this
     step's (value * weight, weight) added, on the device; with
-    ``with_grad_norms`` also grad_norm_tree of the unclamped gradients."""
-    loss_fn = make_loss_fn(model, task)
+    ``with_grad_norms`` also grad_norm_tree of the unclamped gradients.
+    Under a process group the forward runs through ``data_parallel``."""
+    loss_fn = make_loss_fn(
+        model, task, data_parallel(model) if is_initialized() else None)
 
     def train_step(batch, metric_acc=None):
         model.train()
@@ -182,12 +225,18 @@ def metric_acc_means(metric_acc) -> Dict[str, float]:
             for k, (total, weight) in zip(keys, host) if weight > 0}
 
 
-def make_eval_step(model: torch.nn.Module, task: TaskConfig):
+def make_eval_step(model: torch.nn.Module, task: TaskConfig,
+                   over_ranks: Optional[bool] = None):
     """eval_step(batch) -> (metrics, prediction (N, H, W, 2) at the last
     supervision time, low-res Bezier params). The test_mode forward on
     running BatchNorm statistics; inputs whose size is not a multiple of 8
-    are padded for the forward and the prediction is cropped back."""
+    are padded for the forward and the prediction is cropped back. With
+    ``over_ranks`` (default: under a process group) the metrics are the
+    global batch's, a collective every rank must join; False keeps them
+    this rank's (the media of rank 0 alone)."""
     cfg = model.config
+    if over_ranks is None:
+        over_ranks = is_initialized()
 
     def eval_step(batch):
         voxel, images, flow, valid = _unpack(batch, cfg.use_images)
@@ -210,6 +259,9 @@ def make_eval_step(model: torch.nn.Module, task: TaskConfig):
             flat = padder.unpad(p.reshape(*p.shape[:3], -1), H, W)
             up = BezierCurves(flat.reshape(*flat.shape[:3], *p.shape[3:]))
         metrics = _family_metrics(task, "val", up.flow_at, flow, valid)
+        if over_ranks:
+            with torch.no_grad():
+                metrics = M.global_metrics(metrics)
         ts = (1.0,) if task.dataset == "dsec" else task.supervision_timestamps
         return metrics, up.flow_at(ts[-1]), low.params
 

@@ -1,11 +1,18 @@
 """Optical-flow metrics: tensor functions and a host-side accumulator bank.
 
-Counterpart of bflow_tpu/utils/metrics.py. Each function returns
-``(value, valid)`` as 0-d tensors on the inputs' device: ``valid`` is 0
-when the reference would have skipped the update (no valid pixels), so a
-train loop can accumulate them on the device and read back only at its
-logging cadence. Streaming across steps happens on the host in float64
-(``MetricBank``), as the reference's torchmetrics states do.
+Counterpart of bflow_tpu/utils/metrics.py. Each function returns a
+``Metric``, which unpacks as ``(value, valid)``, 0-d tensors on the
+inputs' device: ``valid`` is 0 when the reference would have skipped the
+update (no valid pixels), so a train loop can accumulate them on the
+device and read back only at its logging cadence. Streaming across steps
+happens on the host in float64 (``MetricBank``), as the reference's
+torchmetrics states do.
+
+A ``Metric`` keeps the masked sums it is computed from, so that a
+data-parallel step can make every mean one over the global batch, as the
+JAX package's are on a sharded array: ``global_metrics`` all-reduces the
+sums of all of a step's metrics in one packed vector, with no host
+synchronisation, and then finishes each metric from them.
 
 Layout: flows (N, H, W, 2) channels-last, masks (N, H, W) bool.
 """
@@ -13,25 +20,75 @@ Layout: flows (N, H, W, 2) channels-last, masks (N, H, W) bool.
 from __future__ import annotations
 
 import math
-from typing import Dict, List, Optional, Sequence, Tuple
+from dataclasses import dataclass
+from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
 import torch
+
+from bflow_tpu_torch.parallel.distributed import all_reduce_sum
 
 MetricUpdate = Tuple[torch.Tensor, torch.Tensor]  # (value, valid in {0,1})
 
 
+def _first(means: torch.Tensor, valid: torch.Tensor) -> MetricUpdate:
+    return means[0], valid[0]
+
+
+@dataclass(frozen=True)
+class Metric:
+    """One metric of a batch as its masked sums: ``sums`` (k, 2) holds k
+    rows [sum(value * mask), sum(mask)] (an unmasked mean's mask is all
+    ones), and ``finish`` takes the rows' means num / max(den, 1) and
+    valid flags den > 0 to the metric's (value, valid). Unpacks as that
+    pair."""
+
+    sums: torch.Tensor
+    finish: Callable[[torch.Tensor, torch.Tensor], MetricUpdate] = _first
+
+    def update(self) -> MetricUpdate:
+        num, den = self.sums.unbind(-1)
+        return self.finish(num / den.clamp(min=1.0),
+                           (den > 0).to(torch.float32))
+
+    def __iter__(self):
+        return iter(self.update())
+
+    def __getitem__(self, i: int) -> torch.Tensor:
+        return self.update()[i]
+
+
+def scalar_metric(value: torch.Tensor) -> Metric:
+    """A per-rank scalar (the loss) as a Metric of weight 1: over a
+    process group its global value is the mean over ranks."""
+    return Metric(torch.stack([value.float(), value.new_ones(())])[None])
+
+
 def _masked_mean(values: torch.Tensor,
-                 mask: Optional[torch.Tensor]) -> MetricUpdate:
+                 mask: Optional[torch.Tensor]) -> Metric:
     if mask is None:
-        return values.mean(), values.new_ones(())
-    m = mask.to(values.dtype)
-    denom = m.sum()
-    val = (values * m).sum() / denom.clamp(min=1.0)
-    return val, (denom > 0).to(torch.float32)
+        num, den = values.sum(), values.new_full((), float(values.numel()))
+    else:
+        m = mask.to(values.dtype)
+        num, den = (values * m).sum(), m.sum()
+    return Metric(torch.stack([num, den])[None])
+
+
+def global_metrics(metrics: Dict[str, Metric]) -> Dict[str, Metric]:
+    """The metrics with every sum replaced by its sum over the ranks of
+    the process group, taken in one all-reduce of one packed f32
+    vector."""
+    keys = list(metrics)
+    if not keys:
+        return {}
+    sizes = [metrics[k].sums.shape[0] for k in keys]
+    packed = all_reduce_sum(
+        torch.cat([metrics[k].sums.float() for k in keys]))
+    return {k: Metric(s, metrics[k].finish)
+            for k, s in zip(keys, packed.split(sizes))}
 
 
 def epe(source: torch.Tensor, target: torch.Tensor,
-        valid_mask: Optional[torch.Tensor] = None) -> MetricUpdate:
+        valid_mask: Optional[torch.Tensor] = None) -> Metric:
     """End-point error: masked mean of the flow-error L2 norm."""
     assert source.shape == target.shape
     err = (source - target).square().sum(dim=-1).sqrt()
@@ -40,7 +97,7 @@ def epe(source: torch.Tensor, target: torch.Tensor,
 
 def angular_error(source: torch.Tensor, target: torch.Tensor,
                   valid_mask: Optional[torch.Tensor] = None,
-                  degrees: bool = True) -> MetricUpdate:
+                  degrees: bool = True) -> Metric:
     """Middlebury angular error with the homogeneous (append-1)
     extension."""
     assert source.shape == target.shape
@@ -58,33 +115,37 @@ def angular_error(source: torch.Tensor, target: torch.Tensor,
 
 def n_pixel_error(source: torch.Tensor, target: torch.Tensor,
                   valid_mask: Optional[torch.Tensor],
-                  n_pixels: float) -> MetricUpdate:
+                  n_pixels: float) -> Metric:
     """Outlier percentage: error > n px AND relative error >= 5%."""
     assert source.shape == target.shape
     gt_magn = torch.linalg.vector_norm(target, dim=-1)
     err_magn = torch.linalg.vector_norm(source - target, dim=-1)
     rel = err_magn / gt_magn.clamp(min=1e-6)
     outlier = ((err_magn > n_pixels) & (rel >= 0.05)).to(torch.float32)
-    val, ok = _masked_mean(outlier, valid_mask)
-    return val * 100.0, ok
+    return Metric(_masked_mean(outlier, valid_mask).sums, _percent)
 
 
-def _weighted_over_times(updates: Sequence[MetricUpdate]) -> MetricUpdate:
+def _percent(means: torch.Tensor, valid: torch.Tensor) -> MetricUpdate:
+    return means[0] * 100.0, valid[0]
+
+
+def _over_times(means: torch.Tensor, valid: torch.Tensor) -> MetricUpdate:
     """Mean of the per-time values whose update is valid (an all-invalid
     timestamp does not enter the mean)."""
-    total = updates[0][0].new_zeros(())
-    count = updates[0][0].new_zeros(())
-    for val, ok in updates:
-        total = total + val * ok
-        count = count + ok
-    return total / count.clamp(min=1.0), (count > 0).to(torch.float32)
+    count = valid.sum()
+    return ((means * valid).sum() / count.clamp(min=1.0),
+            (count > 0).to(torch.float32))
+
+
+def _weighted_over_times(per_time: Sequence[Metric]) -> Metric:
+    return Metric(torch.cat([m.sums for m in per_time]), _over_times)
 
 
 def epe_multi(sources: Sequence[torch.Tensor],
               targets: Sequence[torch.Tensor],
               valid_masks: Optional[Sequence[torch.Tensor]] = None,
               min_traj_len: Optional[float] = None,
-              max_traj_len: Optional[float] = None) -> MetricUpdate:
+              max_traj_len: Optional[float] = None) -> Metric:
     """Mean EPE over supervision timestamps, optionally gated by the
     ground-truth trajectory length (sum of consecutive displacements)."""
     n = len(sources)
@@ -107,7 +168,7 @@ def epe_multi(sources: Sequence[torch.Tensor],
 def ae_multi(sources: Sequence[torch.Tensor],
              targets: Sequence[torch.Tensor],
              valid_masks: Optional[Sequence[torch.Tensor]] = None,
-             degrees: bool = True) -> MetricUpdate:
+             degrees: bool = True) -> Metric:
     """Mean angular error over supervision timestamps, weighted by each
     timestamp's validity exactly as epe_multi."""
     n = len(sources)
@@ -128,7 +189,7 @@ def predictions_from_lin_assumption(
 
 def single_flow_metrics(source: torch.Tensor, target: torch.Tensor,
                         valid_mask: Optional[torch.Tensor] = None
-                        ) -> Dict[str, MetricUpdate]:
+                        ) -> Dict[str, Metric]:
     """The reference's single-flow MetricCollection: epe/ae/1pe/2pe/3pe."""
     return {
         "epe": epe(source, target, valid_mask),

@@ -3,6 +3,7 @@
 
     python3 chip_smoke.py [--profile DIR] [--seed N] [--conv-sweep]
                           [--lookup-probe] [--eval-only] [--train-only]
+                          [--dist-only]
 
 Run from the repository root, on a machine with a CUDA GPU and the CUDA
 toolkit (nvcc). Phases, each printing JSON lines:
@@ -84,14 +85,30 @@ toolkit (nvcc). Phases, each printing JSON lines:
                   within 1e-5; the two lookups at these shapes, degree-10
                   flow_at against de Casteljau, a profile of one step
                   (phase 9 runs after 7; the kernels line is printed last)
+ 10. dist         data-parallel training (bflow_tpu_torch.parallel):
+                  (10a, dist_world1) phase 6's step over an NCCL group of
+                  one rank (DDP, the global BatchNorm, the loss's global
+                  count, the packed metrics) against no group; (10b,
+                  dist_two_ranks) two ranks on the one card over gloo,
+                  global batch 6 (3 + 3, valid shares 30% and 90%) against
+                  one process at batch 6: loss, metric accumulators (rel
+                  1e-5), gradients after the reduction (1e-4 of the
+                  largest), cnet's running statistics (rel 1e-5), 12 + 12
+                  lookup launches per rank, each rank's step ms, a
+                  gradient-sized all-reduce's ms and peak memory; (10c)
+                  the training CLI on phase 9's samples: under torchrun
+                  (one NCCL rank, 2 steps), hardware.loader=grain against
+                  threaded (step 1 equal), and hardware.devices=2 on
+                  cuda:0 over gloo (one CSV, rank 0's checkpoints, step-1
+                  loss within 1e-5 of one rank)
   8. kernels      one JSON line summing up every kernel
 and, as the last line, {"ok": true, "device": {...}}. Any failure exits
 nonzero before that line; so does a machine without CUDA. The profiles
 (torch.profiler: kernels by device time, idle share) always run; --profile
 DIR also writes their chrome traces into DIR.
 --eval-only runs phases 1, 2 and 7 and stops; --train-only runs phases
-1, 2 and 9 and stops. --conv-sweep runs phases
-1 and 2, then times every tile variant of the conv
+1, 2 and 9 and stops; --dist-only runs phases 1, 2 and 10 and stops.
+--conv-sweep runs phases 1 and 2, then times every tile variant of the conv
 kernels at every flagship conv shape beside the one the tile plan picks,
 and stops. --lookup-probe runs phases 1 and 2, then times the all-level
 lookup kernels' probe variants (patch loads, stores, accumulator read or
@@ -116,9 +133,20 @@ import time
 from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
-import numpy as np
-import torch
-import torch.nn.functional as F
+# Bytecode: where Python runs with PYTHONDONTWRITEBYTECODE (the card's
+# machine does), every process compiles torch's modules anew, ~8 s a
+# process. This process writes their bytecode into the gitignored build
+# directory before it imports them, and the processes it starts (ranks,
+# loader workers, torchrun) read it from there.
+_PYCACHE = Path(__file__).resolve().parent / "bflow_tpu_torch" / "build"
+if _PYCACHE.parent.is_dir():
+    sys.pycache_prefix = str(_PYCACHE / "pycache")
+    sys.dont_write_bytecode = False
+    os.environ["PYTHONPYCACHEPREFIX"] = sys.pycache_prefix
+
+import numpy as np  # noqa: E402
+import torch  # noqa: E402
+import torch.nn.functional as F  # noqa: E402
 
 # W&B stays off the network: the port's logger is a no-op under wandb's
 # own switch (wandb may be installed where there is no network)
@@ -1667,22 +1695,29 @@ class media_capture:
         self._cls.log_image = self._saved
 
 
-def train_cli_run(args, device="cuda"):
+def train_cli_run(args, device="cuda", backend=None, timeout_s=None):
     """bflow_tpu_torch.train.loop.main once, launch counts reset just
-    before and read just after; its CSV rows read back."""
-    import csv
-
+    before and read just after (this process's: spawned ranks count
+    their own); its CSV rows read back. ``timeout_s`` bounds ranks the
+    loop spawns."""
     from bflow_tpu_torch.train import loop
 
     kernels.reset_launch_counts()
-    out = loop.main(args, device=device)
-    if device == "cuda":
+    out = loop.main(args, device=device, backend=backend,
+                    timeout_s=timeout_s)
+    if torch.device(device).type == "cuda":
         torch.cuda.synchronize()
     counts = kernels.launch_counts()
-    with open(out["run_dir"] / "train_metrics.csv") as fh:
-        rows = [{k: float(v) for k, v in r.items() if v != ""}
+    return out, counts, train_csv_rows(out["run_dir"])
+
+
+def train_csv_rows(run_dir):
+    """A training run's train_metrics.csv as rows of floats."""
+    import csv
+
+    with open(run_dir / "train_metrics.csv") as fh:
+        return [{k: float(v) for k, v in r.items() if v != ""}
                 for r in csv.DictReader(fh)]
-    return out, counts, rows
 
 
 def reference_lr(steps):
@@ -1723,6 +1758,39 @@ def bezier_check(seed: int, ts, degree: int = 10):
             "bound": 1e-5, "ok": err <= 1e-5}
 
 
+def multiflow_setup(workdir, seed: int, device="cuda"):
+    """Phase 9a: fabricated MultiFlow samples under workdir/multiflow and
+    a port checkpoint of seeded weights with the damped head (undamped,
+    the random-init recurrence diverges over 12 iterations); written once
+    per workdir. Returns the data root, the checkpoint and the model
+    config the CLI composes."""
+    from bflow_tpu_torch.cli import (CONFIG_DIR, backfill_correlation_bins,
+                                     build_provider, model_config_from)
+    from bflow_tpu_torch.confsys import compose
+
+    root = workdir / "multiflow"
+    ckpt = workdir / "multiflow_damped.pt"
+    if not root.exists():
+        t0 = time.perf_counter()
+        nbytes = 0
+        for split, n, off in (("train", MF_TRAIN, 0), ("val", MF_VAL, 100)):
+            for i in range(n):
+                nbytes += write_multiflow_sample(
+                    root / split / f"seq_{i:04d}", seed + off + i)
+        emit("train_cli_data", samples={"train": MF_TRAIN, "val": MF_VAL},
+             events_per_sample=MF_EVENTS, height=MF_H, width=MF_W,
+             bytes=nbytes, seconds=time.perf_counter() - t0)
+    config = compose(CONFIG_DIR, "train",
+                     mf_train_args(root, workdir / "runs", ckpt))
+    backfill_correlation_bins(config, build_provider(config))
+    cfg = model_config_from(config)
+    if not ckpt.exists():
+        model = damp_head(bt.build_model(cfg, device=device, seed=seed))
+        torch.save({"model": model.state_dict()}, ckpt)
+        del model
+    return root, ckpt, cfg
+
+
 def train_phase(workdir, seed: int, device="cuda", profile_dir=None):
     """Phase 9: fabricate MultiFlow samples (9a), train through the CLI
     with validation, checkpoints and media (9b), resume (9c), step 1 on
@@ -1730,32 +1798,14 @@ def train_phase(workdir, seed: int, device="cuda", profile_dir=None):
     one train step (9f), the numbers (9g). Returns the CLI run's launch
     counts and the 9e records."""
     t_phase = time.perf_counter()
-    root = workdir / "multiflow"
-    t0 = time.perf_counter()
-    nbytes = 0
-    for split, n, off in (("train", MF_TRAIN, 0), ("val", MF_VAL, 100)):
-        for i in range(n):
-            nbytes += write_multiflow_sample(root / split / f"seq_{i:04d}",
-                                             seed + off + i)
-    emit("train_cli_data", samples={"train": MF_TRAIN, "val": MF_VAL},
-         events_per_sample=MF_EVENTS, height=MF_H, width=MF_W, bytes=nbytes,
-         seconds=time.perf_counter() - t0)
+    root, ckpt, cfg = multiflow_setup(workdir, seed, device)
 
-    # 9b. two epochs of two steps, validation each epoch, from a damped
-    # head (undamped, the random-init recurrence diverges over 12 it.)
-    from bflow_tpu_torch.cli import (CONFIG_DIR, backfill_correlation_bins,
-                                     build_provider, model_config_from,
+    # 9b. two epochs of two steps, validation each epoch
+    from bflow_tpu_torch.cli import (CONFIG_DIR, build_provider,
                                      supervision_timestamps)
     from bflow_tpu_torch.confsys import compose
 
     runs = workdir / "runs"
-    ckpt = workdir / "multiflow_damped.pt"
-    config = compose(CONFIG_DIR, "train", mf_train_args(root, runs, ckpt))
-    backfill_correlation_bins(config, build_provider(config))
-    cfg = model_config_from(config)
-    model = damp_head(bt.build_model(cfg, device=device, seed=seed))
-    torch.save({"model": model.state_dict()}, ckpt)
-    del model
     check((cfg.nbins_context, cfg.nbins_correlation, cfg.bezier_degree,
            cfg.ev_target_indices, cfg.ev_levels, cfg.iters_train,
            cfg.iters_test, cfg.corr_precision, cfg.compute_dtype,
@@ -1941,6 +1991,310 @@ def train_phase(workdir, seed: int, device="cuda", profile_dir=None):
 
 
 # ---------------------------------------------------------------------------
+# phase 10: data-parallel training (bflow_tpu_torch.parallel)
+
+
+DIST_B = 6  # 10b's global batch at the training crop: 3 + 3
+DIST_SHARES = (0.3, 0.9)  # flow_valid share of rank 0's and rank 1's half
+DIST_TOL = {"loss": 1e-5, "grad": 1e-4, "stats": 1e-5, "metrics": 1e-5}
+
+
+def dist_batch(seed: int, n: int, device):
+    """train_batch's layouts at n samples at the training crop, the first
+    half's flow_valid share DIST_SHARES[0] and the second's [1]: a mean
+    of the ranks' masked means would differ from the global mean."""
+    rng = np.random.default_rng(seed)
+    cfg = train_config()
+    share = np.repeat(DIST_SHARES, n // 2)[:, None, None]
+    b = {
+        "ev_repr": rng.standard_normal(
+            (n, TRAIN_H, TRAIN_W, cfg.nbins_total)).astype(np.float32),
+        "img": rng.integers(0, 255, (2, n, TRAIN_H, TRAIN_W, 3)
+                            ).astype(np.float32),
+        "flow": (3.0 * rng.standard_normal((n, TRAIN_H, TRAIN_W, 2))
+                 ).astype(np.float32),
+        "flow_valid": rng.random((n, TRAIN_H, TRAIN_W)) < share,
+    }
+    return {k: torch.from_numpy(v).to(device) for k, v in b.items()}
+
+
+def dist_step(batch, seed: int, device, timed: int = 2) -> dict:
+    """make_train_step from phase 6's weights (seed, damped head) on this
+    rank's batch (through DDP, the global BatchNorm, the loss's global
+    count and the packed metrics under a process group): the first step's
+    loss, metric accumulators, gradients after the reduction (before the
+    clamp), cnet's running statistics and lookup launches; then `timed`
+    more steps' device ms (CUDA events) and the peak memory."""
+    from bflow_tpu_torch.train import TaskConfig, TrainState, make_train_step
+    from bflow_tpu_torch.train.step import init_metric_acc, train_metric_keys
+
+    model = damp_head(bt.build_model(train_config(), device, seed))
+    state = TrainState.create(model, TRAINING)
+    task = TaskConfig("dsec")
+    step = make_train_step(model, task, state.optimizer, state.scheduler)
+    grads = {}
+    adam_step = state.optimizer.step
+
+    def keep_grads(*args, **kwargs):  # the clamp works in place
+        if not grads:
+            grads.update({k: p.grad.detach().clone()
+                          for k, p in model.named_parameters()})
+        return adam_step(*args, **kwargs)
+
+    state.optimizer.step = keep_grads
+    torch.cuda.synchronize(device)
+    torch.cuda.reset_peak_memory_stats(device)
+    kernels.reset_launch_counts()
+    acc = step(batch, init_metric_acc(train_metric_keys(task), device))
+    torch.cuda.synchronize(device)
+    counts = kernels.launch_counts()
+    stats = {k: v.clone() for k, v in model.cnet.state_dict().items()
+             if "running" in k}
+    ms = []
+    for _ in range(timed):
+        events = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+        events[0].record()
+        step(batch)
+        events[1].record()
+        torch.cuda.synchronize(device)
+        ms.append(events[0].elapsed_time(events[1]))
+    total, weight = acc["train/l1_seq_loss"]
+    return {"loss": (total / weight).item(),
+            "acc": {k: (v.item(), w.item()) for k, (v, w) in acc.items()},
+            "grads": {k: g.cpu() for k, g in grads.items()},
+            "stats": {k: v.cpu() for k, v in stats.items()},
+            "launches": counts, "step_ms": ms,
+            "max_memory_allocated": torch.cuda.max_memory_allocated(device)}
+
+
+def dist_compare(got: dict, want: dict) -> dict:
+    """got against want: the loss and each metric accumulator relative,
+    the gradients against the largest |grad| of the model, cnet's running
+    statistics relative to each one's largest."""
+    gmax = max(g.abs().max().item() for g in want["grads"].values())
+    grad, where = max(((got["grads"][k] - g).abs().max().item() / gmax, k)
+                      for k, g in want["grads"].items())
+    metrics = max(abs(got["acc"][k][0] - v) / max(abs(v), 1e-12)
+                  + (got["acc"][k][1] != w)
+                  for k, (v, w) in want["acc"].items())
+    out = {"loss": abs(got["loss"] - want["loss"]) / abs(want["loss"]),
+           "grad": grad, "grad_worst_param": where,
+           "stats": max(rel_diff(got["stats"][k], s)
+                        for k, s in want["stats"].items()),
+           "metrics": metrics}
+    out["ok"] = all(out[k] <= DIST_TOL[k] for k in DIST_TOL)
+    return out
+
+
+def _dist_rank(seed: int, device=None, backend=None) -> dict:
+    """One of 10b's ranks: its half of the global batch through
+    dist_step, then a gradient-sized all-reduce timed; every rank's
+    numbers gathered on rank 0."""
+    import torch.distributed as dist
+
+    from bflow_tpu_torch.parallel.mesh import shard_batch
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cudnn.deterministic = True
+    out = dist_step(shard_batch(dist_batch(seed, DIST_B, device)), seed,
+                    device)
+    buf = torch.ones(sum(g.numel() for g in out["grads"].values()),
+                     device=device)
+    times = []
+    for _ in range(5):
+        torch.cuda.synchronize(device)
+        t0 = time.perf_counter()
+        dist.all_reduce(buf)
+        torch.cuda.synchronize(device)
+        times.append((time.perf_counter() - t0) * 1e3)
+    mine = {"rank": dist.get_rank(), "step_ms": out["step_ms"],
+            "launches": out["launches"],
+            "max_memory_allocated": out["max_memory_allocated"],
+            "all_reduce_ms": statistics.median(times[1:]),
+            "all_reduce_floats": buf.numel()}
+    ranks = [None] * dist.get_world_size()
+    dist.all_gather_object(ranks, mine)
+    return {**out, "ranks": ranks}
+
+
+def timed_lines(cmd, timeout_s: float):
+    """Run cmd unbuffered in a session of its own; its output lines
+    (stdout and stderr merged), each with the seconds from the start at
+    which it came, the exit code and the wall seconds. At timeout_s the
+    whole session is killed (the launcher and its workers)."""
+    import signal
+    import threading
+
+    t0 = time.perf_counter()
+    proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                            stderr=subprocess.STDOUT, text=True,
+                            start_new_session=True,
+                            env={**os.environ, "PYTHONUNBUFFERED": "1"})
+
+    def kill():
+        with contextlib.suppress(ProcessLookupError):
+            os.killpg(proc.pid, signal.SIGKILL)
+
+    timer = threading.Timer(timeout_s, kill)
+    timer.start()
+    lines = []
+    try:
+        for line in proc.stdout:
+            lines.append((time.perf_counter() - t0, line.rstrip()))
+        rc = proc.wait()
+    finally:
+        timer.cancel()
+        kill()
+    return lines, rc, time.perf_counter() - t0
+
+
+def dist_phase(workdir, seed: int) -> dict:
+    """Phase 10: (10a) the DSEC train step over an NCCL group of one rank
+    against no group; (10b) two ranks on the one card over gloo, global
+    batch 6 with unequal valid shares, against one process at batch 6;
+    (10c) the training CLI: under torchrun, with the worker-process loader
+    against the threaded one, and over two ranks. Returns 10a's and 10b's
+    launch counts."""
+    import torch.distributed as dist
+
+    from bflow_tpu_torch.parallel import distributed
+
+    t_phase = time.perf_counter()
+    dev = torch.device("cuda", 0)
+    torch.backends.cudnn.deterministic = True
+
+    # 10a. world size 1 over NCCL: the phase-6 step through DDP, the global
+    # BatchNorm and the packed metrics, against the step without a group
+    t0 = time.perf_counter()
+    batch = train_batch(seed, dev)
+    alone = dist_step(batch, seed, dev)
+    distributed.initialize_distributed(
+        init_method=f"file://{workdir / 'rendezvous_10a'}", world_size=1,
+        rank=0, backend="nccl", device=dev)
+    try:
+        check(dist.get_backend() == "nccl", "10a: not an NCCL group")
+        ranked = dist_step(batch, seed, dev)
+    finally:
+        dist.destroy_process_group()
+    cmp_a = dist_compare(ranked, alone)
+    want = {klookup.NAME: ITERS, klookup.BWD_NAME: ITERS}
+    launches_a = {k: ranked["launches"][k] for k in want}
+    emit("dist_world1", backend="nccl", batch=TRAIN_B, height=TRAIN_H,
+         width=TRAIN_W, iters=ITERS, loss=ranked["loss"],
+         loss_no_group=alone["loss"], **{f"rel_{k}": v
+                                         for k, v in cmp_a.items()},
+         bounds=DIST_TOL, launches=ranked["launches"],
+         step_ms=ranked["step_ms"], step_ms_no_group=alone["step_ms"],
+         max_memory_allocated=ranked["max_memory_allocated"],
+         seconds=time.perf_counter() - t0)
+    check(cmp_a["ok"], f"10a: one NCCL rank vs no group: {cmp_a}")
+    check(launches_a == want, f"10a: launches {ranked['launches']}")
+    del batch, alone, ranked
+
+    # 10b. two ranks sharing the card over gloo against one process at the
+    # global batch
+    t0 = time.perf_counter()
+    whole = dist_step(dist_batch(seed, DIST_B, dev), seed, dev)
+    torch.cuda.empty_cache()
+    t_spawn = time.perf_counter()
+    two = distributed.spawn(_dist_rank, 2, args=(seed,), device="cuda:0",
+                            backend="gloo", timeout_s=300)
+    spawn_s = time.perf_counter() - t_spawn
+    cmp_b = dist_compare(two, whole)
+    launches_b = [r["launches"] for r in two["ranks"]]
+    emit("dist_two_ranks", backend="gloo", device="cuda:0 (both ranks)",
+         batch=DIST_B, per_rank=DIST_B // 2, valid_shares=DIST_SHARES,
+         height=TRAIN_H, width=TRAIN_W, iters=ITERS, loss=two["loss"],
+         loss_one_process=whole["loss"],
+         **{f"rel_{k}": v for k, v in cmp_b.items()}, bounds=DIST_TOL,
+         ranks=two["ranks"], one_process_step_ms=whole["step_ms"],
+         one_process_max_memory_allocated=whole["max_memory_allocated"],
+         spawn_and_run_seconds=spawn_s, seconds=time.perf_counter() - t0)
+    check(cmp_b["ok"], f"10b: two gloo ranks vs one process: {cmp_b}")
+    check(all({k: c[k] for k in want} == want for c in launches_b),
+          f"10b: launches per rank {launches_b}")
+    del whole, two
+    torch.backends.cudnn.deterministic = False
+    torch.cuda.empty_cache()
+
+    # 10c. the training CLI over ranks, on phase 9's MultiFlow setup: the
+    # worker-process loader against the threaded one, in turns, at global
+    # batch 2
+    root, ckpt, _ = multiflow_setup(workdir, seed)
+    quick = ["training.max_steps=2", "training.max_epochs=1",
+             "training.limit_train_batches=2", "training.limit_val_batches=0",
+             "logging.only_numbers=true"]
+    torch.backends.cudnn.deterministic = True
+    loaders = {}
+    for kind in ("threaded", "grain"):
+        t0 = time.perf_counter()
+        out, counts, rows = train_cli_run(mf_train_args(
+            root, workdir / f"runs_{kind}", ckpt,
+            quick + ["training.batch_size=2", f"hardware.loader={kind}"]))
+        loaders[kind] = {
+            "step1": rows[0], "launches": counts, "samples": out["samples"],
+            "samples_per_s": out["samples"] / out["train_seconds"],
+            "loader_wait_share": (out["loader_wait_seconds"]
+                                  / out["train_seconds"]),
+            "seconds": time.perf_counter() - t0}
+    torch.backends.cudnn.deterministic = False
+    emit("dist_loaders", **loaders)
+    step1 = [{k: v for k, v in loaders[kind]["step1"].items()
+              if k != "steps_per_sec"} for kind in ("threaded", "grain")]
+    check(step1[0] == step1[1],
+          f"10c: step 1 of the grain loader {step1[1]} != threaded "
+          f"{step1[0]}: the batches differ")
+
+    # python -m torch.distributed.run (one NCCL rank, phase 9's batch 3)
+    # beside loop.main over two gloo ranks on the card at global batch 2:
+    # neither is timed, so the two share the card and the host's cores
+    t0 = time.perf_counter()
+    with ThreadPoolExecutor(1) as pool:
+        torchrun = pool.submit(timed_lines, [
+            sys.executable, "-m", "torch.distributed.run", "--standalone",
+            "--nproc_per_node=1", "-m", "bflow_tpu_torch.train",
+            *mf_train_args(root, workdir / "runs_torchrun", ckpt, quick)],
+            300)
+        out, counts, rows = train_cli_run(mf_train_args(
+            root, workdir / "runs_two", ckpt,
+            quick + ["training.batch_size=2", "hardware.devices=2"]),
+            device="cuda:0", backend="gloo", timeout_s=300)
+        lines, rc, torchrun_s = torchrun.result()
+    both_s = time.perf_counter() - t0
+    tr_rows = [] if rc else train_csv_rows(
+        workdir / "runs_torchrun" / "smoke_multiflow_regen")
+    losses = [r["train/l1_multi_seq_loss"] for r in tr_rows]
+    marks = {m: next((t for t, line in lines if line.startswith(m)), None)
+             for m in ("training:", "step 1:", "step 2:", "done at")}
+    emit("dist_torchrun", returncode=rc, seconds=torchrun_s,
+         seconds_to=marks, losses=losses,
+         output_tail=[line for _, line in lines[-12:]])
+    check(rc == 0 and any(line.startswith("training: 1 rank(s)")
+                          for _, line in lines)
+          and len(losses) == 2 and all(np.isfinite(losses)),
+          f"10c: torchrun run: rc {rc}, losses {losses}")
+
+    run_dir = out["run_dir"]
+    files = sorted(str(p.relative_to(run_dir)) for p in run_dir.rglob("*"))
+    loss_one = loaders["threaded"]["step1"]["train/l1_multi_seq_loss"]
+    rel = abs(rows[0]["train/l1_multi_seq_loss"] - loss_one) / abs(loss_one)
+    emit("dist_cli_two_ranks", backend="gloo", device="cuda:0 (both ranks)",
+         world=out["world"], steps=out["step"], samples=out["samples"],
+         files=files, loss=rows[0]["train/l1_multi_seq_loss"],
+         loss_one_rank=loss_one, rel=rel, bound=1e-5,
+         seconds_beside_torchrun=both_s)
+    check(out["world"] == 2 and out["step"] == 2 and out["samples"] == 4,
+          f"10c: two-rank run {out['world']} ranks, {out['step']} steps")
+    check(files == ["ckpt", "ckpt/last.pt", "ckpt/meta.json",
+                    "train_metrics.csv"],
+          f"10c: two-rank run files {files}")
+    check(rel <= 1e-5, f"10c: two-rank step-1 loss vs one rank: {rel}")
+    emit("dist_phase", seconds=time.perf_counter() - t_phase)
+    return {"world1_nccl": launches_a, "two_ranks_gloo": launches_b}
+
+
+# ---------------------------------------------------------------------------
 
 
 def main() -> int:
@@ -1959,6 +2313,9 @@ def main() -> int:
     ap.add_argument("--train-only", action="store_true",
                     help="after the build, run only MultiFlow training "
                          "through the training CLI (phase 9), and stop")
+    ap.add_argument("--dist-only", action="store_true",
+                    help="after the build, run only data-parallel training "
+                         "(phase 10), and stop")
     ap.add_argument("--profile", metavar="DIR",
                     help="write the chrome traces of the profiled forward "
                          "and train step into DIR")
@@ -1993,7 +2350,7 @@ def main() -> int:
              report[klookup.NAME]["ptxas"]))
 
     if (args.conv_sweep or args.lookup_probe or args.eval_only
-            or args.train_only):
+            or args.train_only or args.dist_only):
         if args.conv_sweep:
             conv_sweep(args.seed)
         if args.lookup_probe:
@@ -2004,6 +2361,9 @@ def main() -> int:
         if args.train_only:
             with tempfile.TemporaryDirectory() as tmp:
                 train_phase(Path(tmp), args.seed, profile_dir=args.profile)
+        if args.dist_only:
+            with tempfile.TemporaryDirectory() as tmp:
+                dist_phase(Path(tmp), args.seed)
         print(json.dumps({"ok": True, "device": {
             "platform": "gpu", "kind": kind,
             "count": torch.cuda.device_count()}}), flush=True)
@@ -2346,10 +2706,12 @@ def main() -> int:
 
     # 9. MultiFlow training through the training CLI: fabricated samples,
     # two epochs with validation, checkpoints and media, the resume, step 1
-    # on the plain twins, the lookups at these shapes
+    # on the plain twins, the lookups at these shapes; 10. data-parallel
+    # training, the CLI's runs on phase 9's samples
     with tempfile.TemporaryDirectory() as tmp:
         mf_counts, mf_fwd, mf_bwd = train_phase(Path(tmp), args.seed,
                                                 profile_dir=args.profile)
+        dist_counts = dist_phase(Path(tmp), args.seed)
 
     # 8. kernels line: the lookups per iteration at the flagship shapes
     # (bf16; the backward also at the training shapes, f32), one launch
@@ -2361,6 +2723,11 @@ def main() -> int:
     def bwd_fields(r):
         return {k: r[k] for k in ("ms", "zero_ms_per_step", "plain_ms",
                                   "bound_ms", "library_ms")}
+
+    def launches_dp(counts, name):
+        return {"world1_nccl_first_step": counts["world1_nccl"][name],
+                "two_ranks_gloo_first_step": [
+                    c[name] for c in counts["two_ranks_gloo"]]}
 
     def multiflow(r, err_keys):
         return {"max_abs_err": max(r[k] for k in err_keys),
@@ -2379,6 +2746,7 @@ def main() -> int:
         "launches_train": train_counts[klookup.NAME],
         "launches_eval": eval_counts[klookup.NAME],
         "launches_train_multiflow": mf_counts[klookup.NAME],
+        "launches_data_parallel": launches_dp(dist_counts, klookup.NAME),
         "max_abs_err": max(r["max_abs_err"] for r in per_pyr + [mf_fwd]),
         "ms": fwd["ms"],
         "plain_ms": fwd["plain_ms"],
@@ -2395,6 +2763,8 @@ def main() -> int:
         "launches": train_counts[klookup.BWD_NAME],
         "launches_eval": eval_counts[klookup.BWD_NAME],
         "launches_train_multiflow": mf_counts[klookup.BWD_NAME],
+        "launches_data_parallel": launches_dp(dist_counts,
+                                              klookup.BWD_NAME),
         "max_abs_err": max(max(r["dvol_max_abs_err"],
                                r["dcoords_max_abs_err"])
                            for r in [*per_pyr_bwd.values(), mf_bwd]),

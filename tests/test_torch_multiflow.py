@@ -161,10 +161,23 @@ def test_loader_early_break_releases_producer(mf_root):
     assert threading.active_count() <= before
 
 
-def test_grain_loader_raises(mf_root):
-    tds = MultiflowProvider(mf_params(mf_root), 6).get_train_dataset()
-    with pytest.raises(NotImplementedError, match="ROADMAP item 8"):
-        make_loader(tds, kind="grain", batch_size=1)
+def test_grain_loader_batches_equal_threaded(mf_root, backend):
+    """hardware.loader=grain: MultiFlow items, augmented (flip, crop and
+    photometric) and with their nested metadata, loaded in worker
+    processes from the pickled dataset, collate to the threaded Loader's
+    batches bit for bit, per process shard."""
+    tds = MultiflowProvider(mf_params(mf_root, photo_augm=True),
+                            6).get_train_dataset()
+    for shard in (None, (1, 2)):
+        kw = dict(batch_size=1, shuffle=True, seed=5, shard=shard)
+        grain = make_loader(tds, kind="grain", num_workers=2, **kw)
+        threaded = make_loader(tds, kind="threaded", num_workers=2, **kw)
+        for loader in (grain, threaded):
+            loader.set_epoch(2)
+        got, want = list(grain.iterate()), list(threaded.iterate())
+        assert len(got) == len(want) == len(tds) // (shard or (0, 1))[1]
+        for g, w in zip(got, want):
+            assert_items_equal(g, w)
     with pytest.raises(ValueError, match="unknown loader kind"):
         make_loader(tds, kind="multiprocess", batch_size=1)
 

@@ -120,7 +120,7 @@ def mf_runs(mf_root, tmp_path_factory):
     jax_train.main(mf_args(mf_root, work / "jax", ckpt))
     run = "cli_multiflow_regen"
     return {"ckpt": ckpt, "out": out, "port": work / "port" / run,
-            "jax": work / "jax" / run,
+            "jax": work / "jax" / run, "args_root": mf_root,
             "args": mf_args(mf_root, work / "port", ckpt)}
 
 
@@ -353,14 +353,50 @@ def test_resume_equals_uninterrupted(mf_root, tmp_path, monkeypatch, where):
 # -------------------------------------------------------------- errors
 
 
-@pytest.mark.parametrize("override,match", [
-    ("hardware.devices=2", "ROADMAP item 8"),
-    ("hardware.devices=[0,1]", "ROADMAP item 8"),
-    ("hardware.loader=grain", "ROADMAP item 8"),
-])
-def test_unported_options_raise(mf_root, tmp_path, override, match):
-    with pytest.raises(NotImplementedError, match=match):
-        loop.main(mf_args(mf_root, tmp_path, extra=[override]), device="cpu")
+def test_devices_list_raises_as_jax(mf_root, tmp_path):
+    """hardware.devices is a count: a list fails in both packages (the
+    JAX make_mesh compares it with the number of devices)."""
+    import train as jax_train
+
+    args = mf_args(mf_root, tmp_path, extra=["hardware.devices=[0,1]"])
+    with pytest.raises(TypeError):
+        jax_train.main(args)
+    with pytest.raises(TypeError, match="hardware.devices"):
+        loop.main(args, device="cpu")
+    assert not (tmp_path / "cli_multiflow_regen" / "ckpt").exists()
+
+
+def test_two_cpu_ranks_match_jax(mf_runs, tmp_path):
+    """hardware.devices=2 on the CPU: two gloo ranks, one sample each of
+    the global batch of 2, from the same .ckpt: the step-1 row of the one
+    CSV (rank 0's) within the one-step bounds of the single-process JAX
+    run (module docstring)."""
+    out = loop.main(mf_args(mf_runs["args_root"], tmp_path, mf_runs["ckpt"],
+                            extra=["hardware.devices=2"]), device="cpu",
+                    timeout_s=120)
+    assert out["world"] == 2 and out["samples"] == 2
+    got = read_rows(out["run_dir"] / "train_metrics.csv")
+    want = read_rows(mf_runs["jax"] / "train_metrics.csv")
+    assert len(got) == len(want) == 2 and got[0]["step"] == 1
+    np.testing.assert_allclose(got[0]["train/l1_multi_seq_loss"],
+                               want[0]["train/l1_multi_seq_loss"],
+                               rtol=1e-5)
+    for k in sorted(k for k in want[1] if k.startswith("val/")):
+        np.testing.assert_allclose(got[1][k], want[1][k], rtol=1e-4,
+                                   err_msg=k)
+
+
+def test_grain_loader_run_equals_threaded(mf_runs, tmp_path):
+    """hardware.loader=grain: the worker-process loader's batches are the
+    threaded Loader's, so the run's rows are the same, bit for bit (the
+    throughput column apart)."""
+    out = loop.main(mf_args(mf_runs["args_root"], tmp_path, mf_runs["ckpt"],
+                            extra=["hardware.loader=grain"]), device="cpu")
+    got = read_rows(out["run_dir"] / "train_metrics.csv")
+    want = read_rows(mf_runs["port"] / "train_metrics.csv")
+    for row in got + want:
+        row.pop("steps_per_sec", None)
+    assert got == want
 
 
 @pytest.mark.parametrize("device", [None, "cuda"])
