@@ -6,8 +6,8 @@ metric improves (mode 'min' or 'max'), and ``meta.json`` keeps the best
 score, the monitor and the last step, so a restarted run keeps its best.
 ``restore_weights_only`` reads either a port checkpoint or a reference
 ``.ckpt`` (a Lightning file whose ``net.*`` keys are the port's own
-state_dict names); ``resolve_artifact_checkpoint`` finds the file that
-`wandb.artifact_name` names.
+state_dict names, ``port_state_dict``); ``resolve_artifact_checkpoint``
+finds the file that `wandb.artifact_name` names.
 """
 
 from __future__ import annotations
@@ -116,6 +116,23 @@ def resolve_artifact_checkpoint(wandb_cfg: Dict[str, Any], logger
     return subdirs[0] if subdirs else downloaded
 
 
+def port_state_dict(reference_sd: Dict[str, Any],
+                    target: Dict[str, torch.Tensor]) -> Dict[str, Any]:
+    """A reference ``net.*`` state dict under the port's names, for a strict
+    load into the module whose state dict is ``target``: the ``net.``
+    prefix taken off; the ``norm3`` aliases dropped (the reference's
+    residual block registers its downsample norm twice, as ``norm3`` and as
+    ``downsample.1``; the JAX importer maps the second); a
+    ``num_batches_tracked`` the file lacks taken from ``target`` (a
+    counter, not a weight: the JAX importer drops it)."""
+    sd = {k[len("net."):]: v for k, v in reference_sd.items()
+          if k.startswith("net.") and ".norm3." not in k}
+    for k, v in target.items():
+        if k.endswith("num_batches_tracked") and k not in sd:
+            sd[k] = v
+    return sd
+
+
 def restore_weights_only(path: str, model: torch.nn.Module
                          ) -> torch.nn.Module:
     """Load only the weights (parameters and BatchNorm statistics) into
@@ -123,8 +140,7 @@ def restore_weights_only(path: str, model: torch.nn.Module
     p = Path(path)
     ckpt = torch.load(p, map_location="cpu", weights_only=True)
     if p.suffix == ".ckpt":
-        sd = {k[len("net."):]: v for k, v in ckpt["state_dict"].items()
-              if k.startswith("net.")}
+        sd = port_state_dict(ckpt["state_dict"], model.state_dict())
     else:
         sd = ckpt["model"]
     model.load_state_dict(sd)

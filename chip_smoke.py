@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py [--profile DIR] [--seed N] [--conv-sweep]
                           [--lookup-probe] [--eval-only] [--train-only]
-                          [--dist-only]
+                          [--dist-only] [--stream-only]
 
 Run from the repository root, on a machine with a CUDA GPU and the CUDA
 toolkit (nvcc). Phases, each printing JSON lines:
@@ -101,13 +101,35 @@ toolkit (nvcc). Phases, each printing JSON lines:
                   threaded (step 1 equal), and hardware.devices=2 on
                   cuda:0 over gloo (one CSV, rank 0's checkpoints, step-1
                   loss within 1e-5 of one rank)
+ 11. stream       streaming inference over raw events and the released-
+                  checkpoint tool: (11a, stream_window) one window at full
+                  width (bflow_tpu_torch.streaming: 300,000 events padded
+                  to 2^19, 256x320, 5 + 5 bins, 6 iterations, bf16, flows
+                  at 4 query times): the device grid against the host
+                  VoxelGrid (1e-4), the flows against the plain twins
+                  (5e-2), then streaming.main (a first window and 8
+                  timed ones: ms per window, windows/s, the voxelizer /
+                  forward split) with its lookup launches held to 6 per
+                  window, its peak memory and a profile of one window;
+                  (11b, released_family) each of the four released
+                  families (bflow_tpu_torch.parity_released): its
+                  random-init export saved as a .ckpt, read back and its
+                  architecture inferred, then the tool at the native size
+                  (DSEC 480x640, MultiFlow 384x512; B=1, 12 iterations,
+                  f32, --bf16-also --q8-also), 12 lookup launches per
+                  forward, the f32 flows against the plain twins (1e-3);
+                  (11c) the all-level lookup at the events-only and
+                  streaming tables, exact against its twin, timed with its
+                  bound and F.grid_sample, and its int8 instantiation at
+                  the streaming table
   8. kernels      one JSON line summing up every kernel
 and, as the last line, {"ok": true, "device": {...}}. Any failure exits
 nonzero before that line; so does a machine without CUDA. The profiles
 (torch.profiler: kernels by device time, idle share) always run; --profile
 DIR also writes their chrome traces into DIR.
 --eval-only runs phases 1, 2 and 7 and stops; --train-only runs phases
-1, 2 and 9 and stops; --dist-only runs phases 1, 2 and 10 and stops.
+1, 2 and 9 and stops; --dist-only runs phases 1, 2 and 10 and stops;
+--stream-only runs phases 1, 2 and 11 and stops.
 --conv-sweep runs phases 1 and 2, then times every tile variant of the conv
 kernels at every flagship conv shape beside the one the tile plan picks,
 and stops. --lookup-probe runs phases 1 and 2, then times the all-level
@@ -922,7 +944,8 @@ def check_q8_level(Tl, hl, wl, seed):
             "max_abs_ref": want.float().abs().max().item(), "ok": err == 0.0}
 
 
-def check_q8_pyramid(n, h1, w1, seed, timing=True):
+def check_q8_pyramid(n, h1, w1, seed, timing=True,
+                     targets=PYRAMID_TARGETS):
     """Phase 3c, the lookup under pallas_q8: the all-level forward over
     the opt-in table (int8 levels 0-1 beside bf16 levels 2-3 at the
     flagship, one launch) and over its int8 levels alone (row 2's own
@@ -930,7 +953,8 @@ def check_q8_pyramid(n, h1, w1, seed, timing=True):
     one-level entries; with timing, also the bf16 levels alone (what the
     opt-in path launched besides the int8 kernel before the int8 levels
     joined the table). Returns (mixed record, int8-only record)."""
-    table, coords = pyramid_inputs(n, h1, w1, torch.bfloat16, seed)
+    table, coords = pyramid_inputs(n, h1, w1, torch.bfloat16, seed,
+                                   targets=targets)
     mixed = q8_table(table)
     check(any(lv.scale is not None for lv in mixed),
           "no level of the table quantizes")
@@ -2295,6 +2319,214 @@ def dist_phase(workdir, seed: int) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# phase 11: streaming inference over raw events (bflow_tpu_torch.streaming)
+# and the released-checkpoint tool (bflow_tpu_torch.parity_released)
+
+
+STREAM_TOL = 5e-2  # the streaming forward (bf16) vs its plain twins
+STREAM_WINDOWS = 8  # timed windows, after the first
+RELEASED_TOL = 1e-3  # the tool's own PASS threshold
+RELEASED_TIMES = (0.5, 1.0)
+# each family at the size its dataset delivers: DSEC 480x640 (degree 2),
+# MultiFlow 384x512 (degree 10)
+RELEASED_SIZE = {2: (480, 640), 10: (384, 512)}
+
+
+def stream_window(seed: int, profile_dir=None) -> dict:
+    """11a: the streaming window at full width. One window's events
+    through the device voxelizer against the host rasterizer (1e-4) and
+    through the forward against its plain twins (5e-2); then the entry
+    point (streaming.main: a first window and STREAM_WINDOWS timed ones),
+    its launches counted, its peak memory; a profile of one window."""
+    from bflow_tpu_torch import streaming as st
+    from bflow_tpu_torch.data.representations import VoxelGrid
+
+    cfg = st.STREAM_CONFIG
+    nb, h, w = cfg.nbins_total, st.H, st.W
+    events = st.synthetic_events(np.random.default_rng(seed), st.N_EVENTS)
+    inputs = st.window_inputs(events, st.EVENT_CAPACITY, "cuda")
+    grid = st.window_grid(*inputs, channels=nb, height=h, width=w)
+    host = VoxelGrid(nb, h, w).convert(
+        *events[:3], events[3].astype(np.int64),
+        st.T0 - (st.T1 - st.T0), st.T1)
+    grid_err = (grid.permute(2, 0, 1).cpu()
+                - torch.from_numpy(host)).abs().max().item()
+    check(grid_err <= 1e-4,
+          f"11a: device grid vs host VoxelGrid {grid_err} > 1e-4")
+    model, pipeline = st.make_pipeline(device="cuda", seed=seed)
+    kern = st.grid_flows(model, grid, st.QUERY_TIMES)
+    with plain_twins():
+        twin = st.grid_flows(model, grid, st.QUERY_TIMES)
+    rel = rel_diff(kern, twin)
+    check(tuple(kern.shape) == (len(st.QUERY_TIMES), 1, h, w, 2),
+          f"11a: flows {tuple(kern.shape)}")
+    check(bool(torch.isfinite(kern).all()), "11a: non-finite flows")
+    check(rel <= STREAM_TOL, f"11a: kernel path vs plain twins {rel}")
+
+    want = expected_launches(cfg, 1, h, w, cfg.iters_test)
+    n_win = 1 + STREAM_WINDOWS
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launch_counts()
+    run = st.main(["--windows", str(STREAM_WINDOWS)], device="cuda")
+    counts = kernels.launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    check(counts == {k: v * n_win for k, v in want.items()},
+          f"11a: launches over {n_win} windows {counts}, derived per "
+          f"window {want}")
+    check(run["finite"], "11a: the entry point's flows are not finite")
+    prof = profile_run(lambda: pipeline(*inputs, st.QUERY_TIMES),
+                       run["ms_per_window"], profile_dir, "stream_window")
+    check(prof["lookup_fwd"]["calls"] == cfg.iters_test,
+          f"11a: profiled window {prof['lookup_fwd']} lookup launches")
+    return {"events": st.N_EVENTS, "capacity": st.EVENT_CAPACITY,
+            "height": h, "width": w, "iters": cfg.iters_test,
+            "query_times": list(st.QUERY_TIMES),
+            "grid_max_abs_err_vs_host": grid_err, "grid_bound": 1e-4,
+            "flows_rel_vs_plain_twins": rel, "tol": STREAM_TOL,
+            "launches": counts, "windows_run": n_win,
+            "launches_per_window": {k: v / n_win for k, v in counts.items()},
+            "max_memory_allocated": peak,
+            **{k: run[k] for k in ("first_window_s", "ms_per_window",
+                                   "windows_per_s", "voxelizer_ms",
+                                   "forward_ms")},
+            "profile": {k: prof[k] for k in (
+                "kernel_ms", "device_calls", "device_idle_share",
+                "unprofiled_ms", "lookup_fwd", "top")}}
+
+
+def released_family(workdir, idx: int, name: str, kw: dict,
+                    profile_dir=None) -> dict:
+    """11b: one released family through parity_released: its random-init
+    export saved as a .ckpt and read back (infer_config must give the
+    family), the tool at the family's native size (B=1, 12 iterations,
+    f32, then bf16 and pallas_q8) with its launches counted and TF32 left
+    at PyTorch's default before it (the tool must turn it off), its f32
+    flows against the same forward on the plain twins, and the time and
+    profile of that forward."""
+    from bflow_tpu_torch import parity_released as pr
+
+    cfg = bt.RaftSplineConfig(**kw)
+    path = workdir / f"{name}.ckpt"
+    torch.save({"state_dict": pr.random_init_state_dict(cfg, idx)}, path)
+    size = RELEASED_SIZE[cfg.bezier_degree]
+    modes = ("auto", "auto", "pallas_q8")  # f32, bf16, q8
+    want = {k: sum(expected_launches(
+        dataclasses.replace(cfg, lookup_method=m), 1, *size, ITERS)[k]
+        for m in modes) for k in kernels.KERNELS}
+    torch.backends.cudnn.allow_tf32 = True  # PyTorch's default
+    torch.backends.cuda.matmul.allow_tf32 = True
+    t0 = time.perf_counter()
+    kernels.reset_launch_counts()
+    out = pr.main([str(path), "--iters", str(ITERS), "--times",
+                   ",".join(map(str, RELEASED_TIMES)), "--size",
+                   *map(str, size), "--bf16-also", "--q8-also"],
+                  device="cuda")
+    counts = kernels.launch_counts()
+    seconds = time.perf_counter() - t0
+    check(not (torch.backends.cudnn.allow_tf32
+               or torch.backends.cuda.matmul.allow_tf32),
+          f"11b {name}: the tool left TF32 on in its f32 mode")
+    check(out["config"] == cfg and out["name"].startswith(name + " "),
+          f"11b {name}: infer_config gave {out['name']}")
+    check(counts == want, f"11b {name}: launches {counts}, derived {want}")
+    for mode, flows in out["flows"].items():
+        check(all(np.isfinite(f).all() and f.shape == (1, 2, *size)
+                  for f in flows.values()),
+              f"11b {name}: {mode} flows not finite or misshapen")
+    # the tool's f32 model once more: its forward on the plain twins, then
+    # alone, host clock around forwards ending in a synchronize (1 warm-up,
+    # 3 timed)
+    voxel, images = pr.random_inputs(cfg, size)
+    model = pr.load_model(cfg, pr.load_state_dict(str(path)), "float32",
+                          device="cuda")
+    with plain_twins():
+        twin = pr.model_flow(model, voxel, images, ITERS, RELEASED_TIMES)
+    rel = pr.report(f"{name} f32 vs plain twins", out["flows"]["float32"],
+                    twin)
+    check(rel <= RELEASED_TOL,
+          f"11b {name}: f32 kernel path vs plain twins {rel}")
+    vox, img = pr.model_inputs(model, voxel, images)
+    run_forward(model, vox, img)
+    fwd_ms = []
+    for _ in range(3):
+        t1 = time.perf_counter()
+        run_forward(model, vox, img)
+        fwd_ms.append((time.perf_counter() - t1) * 1e3)
+    prof = profile_run(lambda: run_forward(model, vox, img),
+                       statistics.median(fwd_ms), profile_dir,
+                       f"released_{name}")
+    check(prof["lookup_fwd"]["calls"] == ITERS,
+          f"11b {name}: profiled forward {prof['lookup_fwd']} lookups")
+    return {"family": name, "inferred": out["name"], "size": list(size),
+            "iters": ITERS, "times": list(RELEASED_TIMES),
+            "f32_rel_vs_plain_twins": rel, "tol": RELEASED_TOL,
+            "bf16_vs_f32": out["rel"]["bf16_vs_f32"],
+            "q8_vs_bf16": out["rel"]["q8_vs_bf16"],
+            "max_abs_flow_f32": max(float(np.abs(f).max())
+                                    for f in out["flows"]["float32"].values()),
+            "launches": counts, "launches_per_forward": {
+                k: v / len(modes) for k, v in counts.items()},
+            "ms_per_forward_f32": statistics.median(fwd_ms),
+            "ms_all_f32": fwd_ms, "seconds": seconds,
+            "profile_f32": {k: prof[k] for k in (
+                "kernel_ms", "device_calls", "device_idle_share",
+                "lookup_fwd", "direct_copy", "top")}}
+
+
+def stream_phase(workdir, seed: int, profile_dir=None) -> dict:
+    """Phase 11: the streaming window (11a), the four released families
+    through the tool (11b), and the lookup at their tables (11c). Returns
+    what the kernels line reads."""
+    from bflow_tpu_torch import parity_released as pr
+    from bflow_tpu_torch import streaming as st
+    from bflow_tpu_torch.models.corr import level_target_indices
+
+    t_phase = time.perf_counter()
+    stream = stream_window(seed, profile_dir)
+    emit("stream_window", **stream)
+
+    families = {}
+    for idx, (name, kw) in enumerate(pr.RELEASED_FAMILIES):
+        rec = released_family(workdir, idx, name, kw, profile_dir)
+        emit("released_family", **rec)
+        families[name] = rec
+
+    # 11c. the all-level lookup at the events-only tables (one target at
+    # levels 1-3) and the streaming table (32x40 queries), exact against
+    # its twin; its int8 instantiation at the streaming table, where
+    # pallas_q8 quantizes level 0 (32 rows) and not level 1 (16)
+    fam = dict(pr.RELEASED_FAMILIES)
+    tables = {}
+    for what, cfg, size, dtype in (
+            ("E_LU4_BD2", bt.RaftSplineConfig(**fam["E_LU4_BD2"]),
+             RELEASED_SIZE[2], torch.float32),
+            ("E_LU5_BD10", bt.RaftSplineConfig(**fam["E_LU5_BD10"]),
+             RELEASED_SIZE[10], torch.float32),
+            ("stream", st.STREAM_CONFIG, (st.H, st.W), torch.bfloat16)):
+        targets = level_target_indices(cfg.levels_per_target)
+        rec = check_lookup_pyramid(1, size[0] // 8, size[1] // 8, dtype,
+                                   seed, targets=targets)
+        rec["targets"] = [list(t) for t in targets]
+        emit("kernel", name=klookup.NAME, table=what, **rec)
+        check(rec["ok"], f"11c: all-level lookup at the {what} table "
+                         f"disagrees: {rec}")
+        tables[what] = rec
+    targets = level_target_indices(st.STREAM_CONFIG.levels_per_target)
+    q8_mixed, q8_only = check_q8_pyramid(1, st.H // 8, st.W // 8, seed,
+                                         targets=targets)
+    for what, rec in (("stream: int8 level 0, bf16 levels 1-3", q8_mixed),
+                      ("stream: int8 level 0", q8_only)):
+        emit("kernel", name=klookup.NAME, table=what, **rec)
+        check(rec["ok"], f"11c: lookup over {what} disagrees: {rec}")
+    check([lv[1] for lv in q8_mixed["levels"]]
+          == ["int8", "bfloat16", "bfloat16", "bfloat16"],
+          f"11c: streaming q8 table {q8_mixed['levels']}")
+    emit("stream_phase", seconds=time.perf_counter() - t_phase)
+    return {"stream": stream, "families": families, "tables": tables,
+            "q8_mixed": q8_mixed, "q8_only": q8_only}
+
+
+# ---------------------------------------------------------------------------
 
 
 def main() -> int:
@@ -2316,6 +2548,9 @@ def main() -> int:
     ap.add_argument("--dist-only", action="store_true",
                     help="after the build, run only data-parallel training "
                          "(phase 10), and stop")
+    ap.add_argument("--stream-only", action="store_true",
+                    help="after the build, run only streaming inference and "
+                         "the released-checkpoint tool (phase 11), and stop")
     ap.add_argument("--profile", metavar="DIR",
                     help="write the chrome traces of the profiled forward "
                          "and train step into DIR")
@@ -2350,7 +2585,7 @@ def main() -> int:
              report[klookup.NAME]["ptxas"]))
 
     if (args.conv_sweep or args.lookup_probe or args.eval_only
-            or args.train_only or args.dist_only):
+            or args.train_only or args.dist_only or args.stream_only):
         if args.conv_sweep:
             conv_sweep(args.seed)
         if args.lookup_probe:
@@ -2364,6 +2599,9 @@ def main() -> int:
         if args.dist_only:
             with tempfile.TemporaryDirectory() as tmp:
                 dist_phase(Path(tmp), args.seed)
+        if args.stream_only:
+            with tempfile.TemporaryDirectory() as tmp:
+                stream_phase(Path(tmp), args.seed, profile_dir=args.profile)
         print(json.dumps({"ok": True, "device": {
             "platform": "gpu", "kind": kind,
             "count": torch.cuda.device_count()}}), flush=True)
@@ -2713,6 +2951,12 @@ def main() -> int:
                                                 profile_dir=args.profile)
         dist_counts = dist_phase(Path(tmp), args.seed)
 
+    # 11. streaming inference over raw events at full width, the four
+    # released families through the parity tool at their native sizes, the
+    # lookup at their tables
+    with tempfile.TemporaryDirectory() as tmp:
+        p11 = stream_phase(Path(tmp), args.seed, profile_dir=args.profile)
+
     # 8. kernels line: the lookups per iteration at the flagship shapes
     # (bf16; the backward also at the training shapes, f32), one launch
     # for every level; the convs per forward, the sum over their shapes of
@@ -2728,6 +2972,12 @@ def main() -> int:
         return {"world1_nccl_first_step": counts["world1_nccl"][name],
                 "two_ranks_gloo_first_step": [
                     c[name] for c in counts["two_ranks_gloo"]]}
+
+    def table_fields(r):
+        return {**{k: r[k] for k in ("max_abs_err", "ms", "plain_ms",
+                                     "bound_ms", "library_ms", "queries",
+                                     "dtype")},
+                "x_bound": r["ms"] / r["bound_ms"]}
 
     def multiflow(r, err_keys):
         return {"max_abs_err": max(r[k] for k in err_keys),
@@ -2747,7 +2997,12 @@ def main() -> int:
         "launches_eval": eval_counts[klookup.NAME],
         "launches_train_multiflow": mf_counts[klookup.NAME],
         "launches_data_parallel": launches_dp(dist_counts, klookup.NAME),
-        "max_abs_err": max(r["max_abs_err"] for r in per_pyr + [mf_fwd]),
+        "launches_stream": p11["stream"]["launches"][klookup.NAME],
+        "launches_released": {
+            k: r["launches"][klookup.NAME]
+            for k, r in p11["families"].items()},
+        "max_abs_err": max(r["max_abs_err"] for r in [
+            *per_pyr, mf_fwd, *p11["tables"].values()]),
         "ms": fwd["ms"],
         "plain_ms": fwd["plain_ms"],
         "bound_ms": fwd["bound_ms"],
@@ -2755,6 +3010,9 @@ def main() -> int:
         "library_ms": fwd["library_ms"],
         "per": "iteration, all four levels, flagship bf16",
         "multiflow": multiflow(mf_fwd, ["max_abs_err"]),
+        "events_only_and_stream": {
+            k: {**table_fields(r), "per": "iteration, all four levels"}
+            for k, r in p11["tables"].items()},
     }, {
         "name": klookup.BWD_NAME,
         "route": "cuda",
@@ -2783,7 +3041,11 @@ def main() -> int:
                    "int8 levels in the all-level kernel's table",
         "launches": opt_counts[klookup.NAME],
         "launches_eval": eval_opt_counts[klookup.NAME],
-        "max_abs_err": max(q8_mixed["max_abs_err"], q8_only["max_abs_err"]),
+        "launches_released": "12 per pallas_q8 forward, counted with "
+                             "the f32 and bf16 forwards' under "
+                             f"{klookup.NAME}",
+        "max_abs_err": max(r["max_abs_err"] for r in (
+            q8_mixed, q8_only, p11["q8_mixed"], p11["q8_only"])),
         "ms": q8_only["ms"],
         "plain_ms": q8_only["plain_ms"],
         "bound_ms": q8_only["bound_ms"],
@@ -2793,6 +3055,11 @@ def main() -> int:
         "per": "iteration, the int8 levels 0-1 as one table launch, flagship",
         "opt_in_table": {k: q8_mixed[k] for k in (
             "ms", "plain_ms", "bound_ms", "x_bound", "bf16_levels_alone_ms")},
+        "stream": {
+            "int8_level_0": {k: p11["q8_only"][k] for k in (
+                "ms", "plain_ms", "bound_ms", "x_bound", "max_abs_err")},
+            "q8_table": {k: p11["q8_mixed"][k] for k in (
+                "ms", "plain_ms", "bound_ms", "x_bound", "max_abs_err")}},
     }, conv_summary(kstem.NAME, "bflow_tpu/ops/pallas/stem_conv.py:114",
                     per_conv[kstem.NAME], opt_counts, eval_opt_counts),
         conv_summary(kconv.NAME, "bflow_tpu/ops/pallas/conv3x3.py:69",
