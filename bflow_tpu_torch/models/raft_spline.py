@@ -43,6 +43,7 @@ from bflow_tpu_torch.models.extractor import BasicEncoder
 from bflow_tpu_torch.models.update import BasicUpdateBlock, compute_dtype_of
 from bflow_tpu_torch.ops.bezier import BezierCurves
 from bflow_tpu_torch.ops.sampler import coords_grid
+from bflow_tpu_torch.utils.precision import full_f32
 
 def bezier_to_channels(bez: BezierCurves) -> torch.Tensor:
     """(N,H,W,P,2) -> (N,2P,H,W), dimension-major (x_P1..x_Pn, y_P1..)."""
@@ -109,13 +110,18 @@ class RAFTSpline(nn.Module):
         torch.no_grad(). test_mode=False: the list of every iteration's
         upsampled curves, for the sequence loss. BatchNorm statistics
         follow the module's train()/eval() mode, as flax's ``train``
-        argument does."""
-        if test_mode:
-            with torch.no_grad():
-                return self._run(voxel_grid, images, iters, flow_init,
-                                 test_mode=True)
-        return self._run(voxel_grid, images, iters, flow_init,
-                         test_mode=False)
+        argument does. Runs in full f32 where the config asks for f32
+        (utils/precision.py: TF32 off inside, the caller's flags restored
+        after), as the JAX package pins its f32 work to HIGHEST; the
+        backward of the training forward runs outside this call, so
+        train.make_train_step pins its backward itself."""
+        with full_f32():
+            if test_mode:
+                with torch.no_grad():
+                    return self._run(voxel_grid, images, iters, flow_init,
+                                     test_mode=True)
+            return self._run(voxel_grid, images, iters, flow_init,
+                             test_mode=False)
 
     def _run(self, voxel_grid, images, iters, flow_init, test_mode):
         cfg = self.config

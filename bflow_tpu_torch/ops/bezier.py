@@ -19,6 +19,7 @@ import numpy as np
 import torch
 
 from bflow_tpu_torch.ops.upsample import convex_upsample
+from bflow_tpu_torch.utils.precision import full_f32
 
 TimeLike = Union[float, int, Sequence[float]]
 
@@ -53,9 +54,35 @@ class BezierCurves:
         return cls(torch.zeros((batch, ht, wd, degree, 2),
                                device=device, dtype=dtype))
 
+    @classmethod
+    def from_flow(cls, flow: torch.Tensor) -> "BezierCurves":
+        """Degree-1 (linear) curve from a two-view flow field (N, H, W, 2)."""
+        if flow.shape[-1] != 2:
+            raise ValueError(f"flow {tuple(flow.shape)}: last axis must be 2")
+        return cls(flow[..., None, :])
+
+    @property
+    def batch(self) -> int:
+        return self.params.shape[0]
+
+    @property
+    def height(self) -> int:
+        return self.params.shape[1]
+
+    @property
+    def width(self) -> int:
+        return self.params.shape[2]
+
     @property
     def degree(self) -> int:
         return self.params.shape[3]
+
+    @property
+    def dtype(self) -> torch.dtype:
+        return self.params.dtype
+
+    def astype(self, dtype: torch.dtype) -> "BezierCurves":
+        return BezierCurves(self.params.to(dtype))
 
     def delta_update(self, delta: torch.Tensor) -> "BezierCurves":
         if delta.shape != self.params.shape:
@@ -67,6 +94,8 @@ class BezierCurves:
         """Flow from the reference frame at time(s) in [0, 1].
 
         Scalar time -> (N, H, W, 2); sequence of T times -> (T, N, H, W, 2).
+        The contraction over the control points runs in full f32
+        (utils/precision.py), as the JAX package's runs at HIGHEST.
         """
         scalar = isinstance(times, (int, float))
         ts = (float(times),) if scalar else tuple(float(t) for t in times)
@@ -82,8 +111,9 @@ class BezierCurves:
                     bezier_coefficients(self.degree, (t,))[0],
                     dtype=self.params.dtype, device=self.params.device,
                 )
-                flows.append(torch.einsum("nhwpd,p->nhwd",
-                                          self.params, coeff))
+                with full_f32():
+                    flows.append(torch.einsum("nhwpd,p->nhwd",
+                                              self.params, coeff))
         if scalar:
             return flows[0]
         return torch.stack(flows, dim=0)

@@ -42,6 +42,7 @@ from bflow_tpu_torch.utils.losses import (
     l1_seq_loss_masked,
 )
 from bflow_tpu_torch.utils.padder import InputPadder
+from bflow_tpu_torch.utils.precision import full_f32
 
 EV_REPR, IMG, FLOW, FLOW_VALID = (K.EV_REPR.value, K.IMG.value,
                                   K.FLOW.value, K.FLOW_VALID.value)
@@ -172,15 +173,17 @@ def make_train_step(model: torch.nn.Module, task: TaskConfig,
     ``metric_acc`` (from init_metric_acc) the accumulator with this
     step's (value * weight, weight) added, on the device; with
     ``with_grad_norms`` also grad_norm_tree of the unclamped gradients.
-    Under a process group the forward runs through ``data_parallel``."""
+    Under a process group the forward runs through ``data_parallel``.
+    Forward and backward run in full f32 (utils/precision.py)."""
     loss_fn = make_loss_fn(
         model, task, data_parallel(model) if is_initialized() else None)
 
     def train_step(batch, metric_acc=None):
         model.train()
         optimizer.zero_grad(set_to_none=True)
-        loss, metrics = loss_fn(batch)
-        loss.backward()
+        with full_f32():  # the backward too: it runs outside the forward
+            loss, metrics = loss_fn(batch)
+            loss.backward()
         norms = grad_norm_tree(model) if with_grad_norms else None
         optimizer.step()  # clamps the gradients first (ClampedAdamW)
         scheduler.step()
@@ -233,12 +236,17 @@ def make_eval_step(model: torch.nn.Module, task: TaskConfig,
     are padded for the forward and the prediction is cropped back. With
     ``over_ranks`` (default: under a process group) the metrics are the
     global batch's, a collective every rank must join; False keeps them
-    this rank's (the media of rank 0 alone)."""
+    this rank's (the media of rank 0 alone). Runs in full f32
+    (utils/precision.py)."""
     cfg = model.config
     if over_ranks is None:
         over_ranks = is_initialized()
 
     def eval_step(batch):
+        with full_f32():
+            return _eval(batch)
+
+    def _eval(batch):
         voxel, images, flow, valid = _unpack(batch, cfg.use_images)
         ref = voxel if voxel is not None else images[0]
         H, W = ref.shape[-3], ref.shape[-2]

@@ -26,6 +26,7 @@ from typing import Callable, Dict, List, Optional, Sequence, Tuple
 import torch
 
 from bflow_tpu_torch.parallel.distributed import all_reduce_sum
+from bflow_tpu_torch.utils.losses import l1_loss_masked
 
 MetricUpdate = Tuple[torch.Tensor, torch.Tensor]  # (value, valid in {0,1})
 
@@ -177,6 +178,14 @@ def ae_multi(sources: Sequence[torch.Tensor],
     return _weighted_over_times(
         [angular_error(s, t, m, degrees=degrees)
          for s, t, m in zip(sources, targets, masks)])
+
+
+def l1_channel_masked_metric(source: torch.Tensor, target: torch.Tensor,
+                             valid_mask: Optional[torch.Tensor] = None
+                             ) -> Metric:
+    """The masked L1 loss (utils/losses.py:l1_loss_masked) as a metric
+    whose valid flag is always 1, as the JAX package's is."""
+    return scalar_metric(l1_loss_masked(source, target, valid_mask))
 
 
 def predictions_from_lin_assumption(

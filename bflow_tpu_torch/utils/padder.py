@@ -2,7 +2,8 @@
 
 Counterpart of bflow_tpu/utils/padder.py (the reference InputPadder with
 its ``requires_padding`` bug fixed, so padding engages for inputs whose
-size is not a multiple of 8): replicate (edge) padding split evenly.
+size is not a multiple of 8): replicate (edge) padding split evenly, or
+with ``no_top_padding`` every padding row at the bottom (KITTI's mode).
 """
 
 from __future__ import annotations
@@ -14,10 +15,11 @@ import torch.nn.functional as F
 
 
 class InputPadder:
-    def __init__(self, min_size: int = 8):
+    def __init__(self, min_size: int = 8, no_top_padding: bool = False):
         if min_size <= 0:
             raise ValueError(f"min_size must be positive, got {min_size}")
         self.min_size = min_size
+        self.no_top_padding = no_top_padding
 
     def requires_padding(self, ht: int, wd: int) -> bool:
         return ht % self.min_size != 0 or wd % self.min_size != 0
@@ -27,7 +29,10 @@ class InputPadder:
         m = self.min_size
         pad_ht = (m - ht % m) % m
         pad_wd = (m - wd % m) % m
-        rows = (pad_ht // 2, pad_ht - pad_ht // 2)
+        if self.no_top_padding:
+            rows = (0, pad_ht)
+        else:
+            rows = (pad_ht // 2, pad_ht - pad_ht // 2)
         cols = (pad_wd // 2, pad_wd - pad_wd // 2)
         return rows, cols
 

@@ -122,12 +122,28 @@ toolkit (nvcc). Phases, each printing JSON lines:
                   streaming tables, exact against its twin, timed with its
                   bound and F.grid_sample, and its int8 instantiation at
                   the streaming table
+ 12. f32_eval     evaluation at the config's own precision (f32), with
+                  both TF32 flags on in the caller (PyTorch's cuDNN
+                  default), on phase 7's recordings and phase 9's samples:
+                  (12a, f32_val) bflow_tpu_torch.val.main with the
+                  flagship experiment and no model.precision.* override
+                  at batch 4, the composed config == flagship_config() at
+                  f32, 12 lookup launches per forward, the CSV's val/*
+                  within 1e-4 relative of make_eval_step on the plain
+                  twins with TF32 off, the flags left on; (12b) the same
+                  on MultiFlow's val split, E_I_LU5_BD10 at full width
+                  (41/25 bins, degree 10, 384x512) at batch 2; (12c,
+                  f32_predict) predict_dsec: 4 PNGs within 1/128 px of
+                  the plain twins' f32 forward; (12d, f32_pin) the f32
+                  flagship forward and phase 6's train step with TF32 on
+                  and off, bit-equal under deterministic cuDNN; (12e) the
+                  all-level lookup at the two f32 val tables, exact
   8. kernels      one JSON line summing up every kernel
 and, as the last line, {"ok": true, "device": {...}}. Any failure exits
 nonzero before that line; so does a machine without CUDA. The profiles
 (torch.profiler: kernels by device time, idle share) always run; --profile
 DIR also writes their chrome traces into DIR.
---eval-only runs phases 1, 2 and 7 and stops; --train-only runs phases
+--eval-only runs phases 1, 2, 7 and 12 and stops; --train-only runs phases
 1, 2 and 9 and stops; --dist-only runs phases 1, 2 and 10 and stops;
 --stream-only runs phases 1, 2 and 11 and stops.
 --conv-sweep runs phases 1 and 2, then times every tile variant of the conv
@@ -859,18 +875,23 @@ def grads_finite(model) -> bool:
 
 
 def step_grads(cfg, batch, seed, damp: bool, plain: bool = False):
-    """Loss and every parameter's gradient of one train-mode forward and
-    backward from the seeded weights; plain: every kernel of the path
+    """Loss and every parameter's gradient of one train step from the
+    seeded weights, through make_train_step (its forward and backward run
+    in full f32 whatever the process's TF32 flags) with an optimizer that
+    leaves the weights as they are; plain: every kernel of the path
     through its plain twin (plain_twins)."""
-    from bflow_tpu_torch.train.step import TaskConfig, make_loss_fn
+    from bflow_tpu_torch.train.step import TaskConfig, make_train_step
 
-    model = bt.build_model(cfg, "cuda", seed).train()
+    model = bt.build_model(cfg, "cuda", seed)
     if damp:
         damp_head(model)
+    opt = torch.optim.SGD(model.parameters(), lr=0.0)
+    step = make_train_step(model, TaskConfig("dsec"), opt,
+                           torch.optim.lr_scheduler.LambdaLR(opt, lambda _: 1))
     with plain_twins() if plain else contextlib.nullcontext():
-        loss, _ = make_loss_fn(model, TaskConfig("dsec"))(batch)
-        loss.backward()
-    return loss.item(), {k: p.grad for k, p in model.named_parameters()}
+        metrics = step(batch)
+    return (metrics["train/l1_seq_loss"][0].item(),
+            {k: p.grad for k, p in model.named_parameters()})
 
 
 def grad_rel(ga, gp):
@@ -1280,9 +1301,9 @@ DSEC_EXPERIMENT = "+experiment/dsec/raft_spline=E_I_LU4_BD2_lowpyramid"
 # the flagship's overrides: 15 bins, bf16 correlation and compute
 # (fuse_corr_conv and 12 iterations are the config's defaults, the
 # correlation bins come from the data)
-FLAGSHIP_OVERRIDES = ["model.num_bins.context=15",
-                      "model.precision.corr=bfloat16",
-                      "model.precision.compute=bfloat16"]
+FLAGSHIP_BINS = ["model.num_bins.context=15"]
+FLAGSHIP_OVERRIDES = FLAGSHIP_BINS + ["model.precision.corr=bfloat16",
+                                      "model.precision.compute=bfloat16"]
 OPT_IN_OVERRIDES = ["model.lookup_method=pallas_q8", "model.pallas_stem=true",
                     "model.pallas_conv=true"]
 
@@ -1421,12 +1442,16 @@ def read_val_csv(path) -> dict:
     return {k: float(v) for k, v in rows[0].items()}
 
 
-def val_args(root, ckpt, batch, cache: bool, extra=(), h=H, w=W):
-    """The CLI overrides of phase 7 (DSEC's size needs none)."""
+def val_args(root, ckpt, batch, cache: bool, extra=(), h=H, w=W,
+             bf16: bool = True):
+    """The CLI overrides of phase 7 (DSEC's size needs none); without
+    bf16, no model.precision.* override: the config's own f32 (phase
+    12)."""
     size = [] if (h, w) == (H, W) else [f"dataset.height={h}",
                                         f"dataset.width={w}"]
     return ["dataset=dsec", "model=raft-spline", f"dataset.path={root}",
-            f"checkpoint={ckpt}", DSEC_EXPERIMENT, *FLAGSHIP_OVERRIDES,
+            f"checkpoint={ckpt}", DSEC_EXPERIMENT,
+            *(FLAGSHIP_OVERRIDES if bf16 else FLAGSHIP_BINS),
             f"batch_size={batch}", "hardware.num_workers=4",
             f"dataset.load_voxel_grid={str(cache).lower()}", *size, *extra]
 
@@ -1457,11 +1482,12 @@ def batch_sizes(n: int, b: int):
 
 
 def plain_twin_metrics(args, ckpt, device="cuda"):
-    """The val/* metrics of make_eval_step over the same batches, every
-    kernel swapped for its plain twin (plain_twins); also the batches'
-    flows at t=1."""
+    """The val/* metrics of make_eval_step over the same batches (the
+    task val.main builds: DSEC, or MultiFlow at its supervision times),
+    every kernel swapped for its plain twin (plain_twins)."""
     from bflow_tpu_torch.cli import (CONFIG_DIR, backfill_correlation_bins,
-                                     build_provider, model_config_from)
+                                     build_provider, model_config_from,
+                                     supervision_timestamps)
     from bflow_tpu_torch.confsys import compose
     from bflow_tpu_torch.data.loader import Loader
     from bflow_tpu_torch.train import TaskConfig, make_eval_step
@@ -1474,14 +1500,107 @@ def plain_twin_metrics(args, ckpt, device="cuda"):
     model = bt.RAFTSpline(model_config_from(config))
     restore_weights_only(ckpt, model)
     model = model.to(device).eval()
-    step = make_eval_step(model, TaskConfig("dsec"))
-    loader = Loader(provider.get_val_dataset(), int(config["batch_size"]),
-                    num_workers=4, drop_last=False, device=device)
+    val_ds = provider.get_val_dataset()
+    task = (TaskConfig("multiflow2d", supervision_timestamps=(
+        supervision_timestamps(val_ds)))
+        if config["dataset"]["name"] == "multiflow_regen"
+        else TaskConfig("dsec"))
+    step = make_eval_step(model, task)
+    loader = Loader(val_ds, int(config["batch_size"]), num_workers=4,
+                    drop_last=False, device=device)
     bank = MetricBank()
     with plain_twins():
         for batch in loader:
             bank.update(step(batch)[0])
     return bank.compute()
+
+
+def dsec_setup(workdir, seed: int, device="cuda", h: int = H, w: int = W,
+               events_per_window: int = EVENTS_PER_WINDOW):
+    """Phase 7a: fabricated DSEC recordings under workdir/dsec (a train
+    recording of EVAL_WINDOWS windows with flow, a test recording of
+    EVAL_TEST_WINDOWS) and a port checkpoint of the flagship's seeded
+    weights with the damped head; written once per workdir. Returns the
+    data root and the checkpoint."""
+    from bflow_tpu_torch.data import hdf5
+    from bflow_tpu_torch.data import io as dio
+
+    root = workdir / "dsec"
+    ckpt = workdir / "flagship_damped.pt"
+    if not root.exists():
+        t0 = time.perf_counter()
+        wrote = {"train": write_dsec_recording(
+            root / "train" / "zurich_city_00_a", EVAL_WINDOWS, seed, True,
+            events_per_window, h, w),
+            "test": write_dsec_recording(
+            root / "test" / "interlaken_00_b", EVAL_TEST_WINDOWS, seed + 1,
+            False, events_per_window, h, w)}
+        emit("eval_data", height=h, width=w, windows={
+            "train": EVAL_WINDOWS, "test": EVAL_TEST_WINDOWS}, **wrote,
+            seconds=time.perf_counter() - t0,
+            hdf5=("h5py" if hdf5.h5py is not None
+                  else "bflow_tpu_torch builtin"),
+            cache_codec=dio.cache_codec())
+    if not ckpt.exists():
+        model = damp_head(bt.build_model(bt.flagship_config(), device=device,
+                                         seed=seed))
+        torch.save({"model": model.state_dict()}, ckpt)
+        del model
+    return root, ckpt
+
+
+def predict_run(sub, root, ckpt, cfg, h: int = H, w: int = W, bf16=True,
+                plain=False, device="cuda") -> dict:
+    """predict_dsec.main on the test recording into sub, launch counts
+    reset just before and read just after; its PNGs against the test_mode
+    forward of cfg from ckpt on the same items (plain: every kernel
+    through its plain twin, TF32 off), within 1/128 px; ITERS lookup
+    launches per window."""
+    from bflow_tpu_torch import predict_dsec
+    from bflow_tpu_torch.data.dsec.provider import DsecProvider
+    from bflow_tpu_torch.data.io import load_flow_png
+    from bflow_tpu_torch.data.keys import DataLoading as K
+    from bflow_tpu_torch.train.checkpoint import restore_weights_only
+
+    kernels.reset_launch_counts()
+    out = predict_dsec.main(
+        [a for a in val_args(root, ckpt, 1, True, (), h, w, bf16)
+         if not a.startswith(("dataset=", "model=", "batch_size"))]
+        + [f"output_dir={sub}"], device=device)
+    counts = kernels.launch_counts()
+    pngs = sorted(sub.glob("*/*.png"))
+    check(len(pngs) == EVAL_TEST_WINDOWS
+          and {p.parent.name for p in pngs} == {"interlaken_00_b"},
+          f"predict_dsec wrote {pngs}")
+    model = bt.RAFTSpline(cfg)
+    restore_weights_only(ckpt, model)
+    model = model.to(device).eval()
+    provider = DsecProvider({"path": str(root), "load_voxel_grid": True,
+                             "extended_voxel_grid": True,
+                             "normalize_voxel_grid": True,
+                             "height": h, "width": w}, cfg.nbins_context)
+    (seq, test_ds), = provider.iter_test_sequences()
+    worst = 0.0
+    for i in range(len(test_ds)):
+        item = test_ds[i]
+        voxel = torch.from_numpy(item[K.EV_REPR.value])[None].to(device)
+        images = torch.from_numpy(item[K.IMG.value])[:, None].to(device)
+        with (plain_twins() if plain else contextlib.nullcontext()), \
+                (tf32(False) if plain else contextlib.nullcontext()):
+            _, up = model(voxel, images, test_mode=True)
+        flow = up.flow_at(1.0)[0].float().cpu().numpy()
+        dec, valid = load_flow_png(
+            sub / seq / f"{int(item[K.FILE_INDEX.value]):06d}.png")
+        check(dec.shape == (h, w, 2) and bool(valid.all()),
+              f"PNG {i}: shape {dec.shape}, valid {valid.mean()}")
+        worst = max(worst, float(np.abs(dec - flow).max()))
+    what = "plain_twins" if plain else "eval_forward"
+    check(worst <= 1 / 128, f"predict_dsec PNGs vs the {what}: {worst}")
+    check(counts[klookup.NAME] == ITERS * EVAL_TEST_WINDOWS,
+          f"predict_dsec launches {counts}")
+    return {"pngs": len(pngs), "fields_per_s": out["fields_per_sec"],
+            "seconds": out["seconds"], "launches": counts,
+            f"max_abs_vs_{what}_px": worst, "bound_px": 1 / 128}
 
 
 def eval_phase(workdir, seed: int, device="cuda", h: int = H, w: int = W,
@@ -1491,25 +1610,9 @@ def eval_phase(workdir, seed: int, device="cuda", h: int = H, w: int = W,
     the voxel caches and reading them (7c), val with the opt-in modes
     (7d), predict_dsec on the test recording (7e). Returns the launch
     counts of 7c's first run and of 7d, for the kernels line."""
-    from bflow_tpu_torch.data import hdf5
-    from bflow_tpu_torch.data import io as dio
-    from bflow_tpu_torch.data.keys import DataLoading as K
-
     t_phase = time.perf_counter()
-    root = workdir / "dsec"
+    root, ckpt = dsec_setup(workdir, seed, device, h, w, events_per_window)
     train_seq = root / "train" / "zurich_city_00_a"
-    test_seq = root / "test" / "interlaken_00_b"
-    t0 = time.perf_counter()
-    wrote = {"train": write_dsec_recording(
-        train_seq, EVAL_WINDOWS, seed, True, events_per_window, h, w),
-        "test": write_dsec_recording(
-        test_seq, EVAL_TEST_WINDOWS, seed + 1, False, events_per_window, h,
-        w)}
-    emit("eval_data", height=h, width=w, windows={
-        "train": EVAL_WINDOWS, "test": EVAL_TEST_WINDOWS}, **wrote,
-        seconds=time.perf_counter() - t0,
-        hdf5="h5py" if hdf5.h5py is not None else "bflow_tpu_torch builtin",
-        cache_codec=dio.cache_codec())
 
     # 7b. the device voxelizer
     cfg = bt.flagship_config()
@@ -1517,10 +1620,6 @@ def eval_phase(workdir, seed: int, device="cuda", h: int = H, w: int = W,
     emit("eval_voxelize", **rec)
 
     # 7c. val, default modes: uncached, writing the caches, reading them
-    ckpt = workdir / "flagship_damped.pt"
-    model = damp_head(bt.build_model(cfg, device=device, seed=seed))
-    torch.save({"model": model.state_dict()}, ckpt)
-    del model
     sizes = batch_sizes(EVAL_WINDOWS, EVAL_BATCH)
     want = dict.fromkeys(kernels.KERNELS, 0)
     for n in sizes:
@@ -1583,48 +1682,9 @@ def eval_phase(workdir, seed: int, device="cuda", h: int = H, w: int = W,
               if k.startswith("val/")), f"opt-in val metrics {opt_csv}")
 
     # 7e. predict_dsec on the test recording, against the eval forward
-    from bflow_tpu_torch import predict_dsec
-    from bflow_tpu_torch.data.dsec.provider import DsecProvider
-    from bflow_tpu_torch.data.io import load_flow_png
-    from bflow_tpu_torch.train.checkpoint import restore_weights_only
-
-    sub = workdir / "submission"
-    kernels.reset_launch_counts()
-    out = predict_dsec.main(
-        [a for a in val_args(root, ckpt, 1, True, (), h, w)
-         if not a.startswith(("dataset=", "model=", "batch_size"))]
-        + [f"output_dir={sub}"], device=device)
-    pred_counts = kernels.launch_counts()
-    pngs = sorted(sub.glob("*/*.png"))
-    check(len(pngs) == EVAL_TEST_WINDOWS
-          and {p.parent.name for p in pngs} == {test_seq.name},
-          f"predict_dsec wrote {pngs}")
-    model = bt.RAFTSpline(cfg)
-    restore_weights_only(ckpt, model)
-    model = model.to(device).eval()
-    provider = DsecProvider({"path": str(root), "load_voxel_grid": True,
-                             "extended_voxel_grid": True,
-                             "normalize_voxel_grid": True,
-                             "height": h, "width": w}, cfg.nbins_context)
-    (_, test_ds), = provider.iter_test_sequences()
-    worst = 0.0
-    for i in range(len(test_ds)):
-        item = test_ds[i]
-        voxel = torch.from_numpy(item[K.EV_REPR.value])[None].to(device)
-        images = torch.from_numpy(item[K.IMG.value])[:, None].to(device)
-        _, up = model(voxel, images, test_mode=True)
-        flow = up.flow_at(1.0)[0].float().cpu().numpy()
-        dec, valid = load_flow_png(sub / test_seq.name /
-                                   f"{int(item[K.FILE_INDEX.value]):06d}.png")
-        check(dec.shape == (h, w, 2) and bool(valid.all()),
-              f"PNG {i}: shape {dec.shape}, valid {valid.mean()}")
-        worst = max(worst, float(np.abs(dec - flow).max()))
-    emit("eval_predict", pngs=len(pngs), fields_per_s=out["fields_per_sec"],
-         seconds=out["seconds"], launches=pred_counts,
-         max_abs_vs_eval_forward_px=worst, bound_px=1 / 128)
-    check(worst <= 1 / 128, f"predict_dsec PNGs vs the eval forward: {worst}")
-    check(pred_counts[klookup.NAME] == ITERS * EVAL_TEST_WINDOWS,
-          f"predict_dsec launches {pred_counts}")
+    rec = predict_run(workdir / "submission", root, ckpt, cfg, h, w,
+                      device=device)
+    emit("eval_predict", **rec)
     emit("eval_phase", seconds=time.perf_counter() - t_phase)
     return runs["uncached"]["launches"], opt_counts
 
@@ -2118,8 +2178,6 @@ def _dist_rank(seed: int, device=None, backend=None) -> dict:
 
     from bflow_tpu_torch.parallel.mesh import shard_batch
 
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
     torch.backends.cudnn.deterministic = True
     out = dist_step(shard_batch(dist_batch(seed, DIST_B, device)), seed,
                     device)
@@ -2527,6 +2585,215 @@ def stream_phase(workdir, seed: int, profile_dir=None) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# phase 12: evaluation at the config's own precision (f32) through val and
+# predict_dsec, the model's TF32 pin, the lookup at the path's f32 tables
+
+
+F32_EVAL_TOL = 1e-4  # val/* relative, against the plain twins, TF32 off
+MF_VAL_BATCH = 2  # MultiFlow's 3 val samples: a batch of 2 and a tail of 1
+
+
+@contextlib.contextmanager
+def tf32(on: bool):
+    """Both TF32 flags (cuDNN convolutions, CUDA matmuls) set to `on`
+    inside the block, the previous values restored after it."""
+    prior = tf32_state()
+    torch.backends.cudnn.allow_tf32 = on
+    torch.backends.cuda.matmul.allow_tf32 = on
+    try:
+        yield
+    finally:
+        (torch.backends.cudnn.allow_tf32,
+         torch.backends.cuda.matmul.allow_tf32) = prior
+
+
+def tf32_state():
+    return (torch.backends.cudnn.allow_tf32,
+            torch.backends.cuda.matmul.allow_tf32)
+
+
+def mf_val_args(root, ckpt, batch):
+    """The CLI overrides of 12b: MultiFlow's val split, the experiment at
+    full width (native 384x512), the config's own precision."""
+    return ["dataset=multiflow_regen", "model=raft-spline",
+            f"dataset.path={root}", f"checkpoint={ckpt}", MF_EXPERIMENT,
+            f"batch_size={batch}", "hardware.num_workers=4"]
+
+
+def f32_val(what: str, args, ckpt, cfg, workdir, n_fields: int, batch: int,
+            h: int, w: int) -> dict:
+    """12a / 12b: val.main with TF32 on in the caller (PyTorch's default):
+    the composed config, the lookup launches derived per batch (one per
+    iteration), the flags left as they were, and the CSV's val/* against
+    make_eval_step over the same batches on the plain twins with TF32
+    off."""
+    sizes = batch_sizes(n_fields, batch)
+    want = dict.fromkeys(kernels.KERNELS, 0)
+    for n in sizes:
+        for k, v in expected_launches(cfg, n, h, w, cfg.iters_test).items():
+            want[k] += v
+    out, counts, csv_row = val_run(args, workdir)
+    check(tf32_state() == (True, True),
+          f"12 {what}: val left the TF32 flags at {tf32_state()}")
+    check(out["model_config"] == cfg,
+          f"12 {what}: val built {out['model_config']}, not {cfg}")
+    check(out["fields"] == n_fields, f"12 {what}: val saw {out['fields']}")
+    check(counts == want, f"12 {what}: launches {counts}, derived {want} "
+                          f"over batches {sizes}")
+    metrics = {k: v for k, v in csv_row.items() if k.startswith("val/")}
+    check(metrics and all(np.isfinite(v) for v in metrics.values()),
+          f"12 {what}: val metrics {metrics}")
+    with tf32(False):
+        plain = plain_twin_metrics(args, ckpt)
+    rel = {k: abs(metrics[k] - plain[k]) / max(abs(plain[k]), 1e-6)
+           for k in metrics}
+    rec = {"config": what, "precision": [cfg.corr_precision,
+                                         cfg.compute_dtype],
+           "batch": batch, "batches": sizes, "height": h, "width": w,
+           "fields": out["fields"], "seconds": out["seconds"],
+           "fields_per_s": out["metrics"]["fields_per_sec"],
+           "loader_wait_share": out["loader_wait_share"],
+           "launches": counts, "launches_per_forward": {
+               k: v / len(sizes) for k, v in counts.items()},
+           "launches_derived": want, "metrics": metrics,
+           "plain_twin_metrics": plain, "rel_diff_vs_plain": rel,
+           "bound": F32_EVAL_TOL, "tf32_flags_after": list(tf32_state())}
+    emit("f32_val", **rec)
+    check(all(v <= F32_EVAL_TOL for v in rel.values()),
+          f"12 {what}: val metrics vs plain twins: {rel}")
+    return rec
+
+
+def pin_ab(ckpt, seed: int) -> dict:
+    """12d: the flagship at f32 (test_mode, 480x640) and phase 6's train
+    step, each run once with both TF32 flags on and once off, under
+    deterministic cuDNN: the outputs, loss, gradients and updated weights
+    bit-equal (the model and the step pin f32 themselves), the flags read
+    back as set. A bare f32 conv with the flags on and off shows that TF32
+    does change f32 arithmetic on this card (else the A/B could not tell)."""
+    from bflow_tpu_torch.train import TaskConfig, TrainState, make_train_step
+    from bflow_tpu_torch.train.checkpoint import restore_weights_only
+
+    torch.backends.cudnn.deterministic = True
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    x = torch.randn(4, 64, 240, 320, generator=g, device="cuda")
+    k = torch.randn(96, 64, 3, 3, generator=g, device="cuda") / 24
+    bare = {}
+    for on in (True, False):
+        with tf32(on):
+            bare[on] = F.conv2d(x, k, padding=1)
+    bare_diff = rel_diff(bare[True], bare[False])
+    cfg = dataclasses.replace(bt.flagship_config(), corr_precision="float32",
+                              compute_dtype="float32")
+    model = bt.RAFTSpline(cfg)
+    restore_weights_only(ckpt, model)
+    model = model.to("cuda").eval()
+    voxel, images = flagship_inputs(seed)
+    fwd, flags_read = {}, []
+    for on in (True, False):
+        with tf32(on):
+            low, up = run_forward(model, voxel, images)
+            flags_read.append(("forward", on, tf32_state()))
+        fwd[on] = (low.params, up.params, up.flow_at(0.5))
+    fwd_equal = all(torch.equal(a, b) for a, b in zip(fwd[True], fwd[False]))
+    del model, fwd
+    batch = train_batch(seed)
+    steps = {}
+    for on in (True, False):
+        with tf32(on):
+            model = damp_head(bt.build_model(train_config(), "cuda", seed))
+            state = TrainState.create(model, TRAINING)
+            step = make_train_step(model, TaskConfig("dsec"),
+                                   state.optimizer, state.scheduler)
+            metrics = step(batch)
+            torch.cuda.synchronize()
+            flags_read.append(("train step", on, tf32_state()))
+        steps[on] = (metrics["train/l1_seq_loss"][0],
+                     {n: p.grad for n, p in model.named_parameters()},
+                     {n: p.detach() for n, p in model.named_parameters()})
+    torch.backends.cudnn.deterministic = False
+    (l1, g1, p1), (l0, g0, p0) = steps[True], steps[False]
+    rec = {"bare_conv_rel_diff_tf32_on_vs_off": bare_diff,
+           "forward_bit_equal": fwd_equal,
+           "train_loss_bit_equal": bool(torch.equal(l1, l0)),
+           "train_grads_bit_equal": all(torch.equal(g1[n], g0[n])
+                                        for n in g0),
+           "train_weights_bit_equal": all(torch.equal(p1[n], p0[n])
+                                          for n in p0),
+           "train_loss": l0.item(), "flags_set_and_read_after": flags_read,
+           "forward": "flagship f32 test_mode, B=1 480x640, 12 iterations",
+           "train_step": f"DSEC f32, B={TRAIN_B} at {TRAIN_H}x{TRAIN_W}"}
+    emit("f32_pin", **rec)
+    check(bare_diff > 0, "12d: a bare f32 conv is the same with TF32 on and "
+                         "off: the A/B cannot tell")
+    check(all(read == (on, on) for _, on, read in flags_read),
+          f"12d: flags set and read after the calls: {flags_read}")
+    check(fwd_equal and rec["train_loss_bit_equal"]
+          and rec["train_grads_bit_equal"] and rec["train_weights_bit_equal"],
+          f"12d: TF32 on vs off is not bit-equal: {rec}")
+    return rec
+
+
+def f32_eval_phase(workdir, seed: int) -> dict:
+    """Phase 12: val on DSEC (12a) and on MultiFlow (12b) and predict_dsec
+    (12c) at the config's own precision (f32), with TF32 on in the caller
+    as PyTorch's default has it; the pin's A/B (12d); the lookup at the
+    path's two new f32 tables (12e). Reuses phase 7's recordings and
+    phase 9's samples where the workdir has them. Returns what the kernels
+    line reads."""
+    from bflow_tpu_torch.models.corr import level_target_indices
+
+    t_phase = time.perf_counter()
+    root, ckpt = dsec_setup(workdir, seed)
+    mf_root, mf_ckpt, mf_cfg = multiflow_setup(workdir, seed)
+    cfg = dataclasses.replace(bt.flagship_config(), corr_precision="float32",
+                              compute_dtype="float32")
+    check((mf_cfg.corr_precision, mf_cfg.compute_dtype)
+          == ("float32", "float32"), f"12b: MultiFlow config {mf_cfg}")
+    torch.backends.cudnn.allow_tf32 = True  # PyTorch's default
+    torch.backends.cuda.matmul.allow_tf32 = True
+
+    # 12a. val on DSEC at f32: the flagship experiment, no precision
+    # override, B=4 over the 9 windows (4 + 4 + 1), reading 7c's caches
+    dsec = f32_val("DSEC E_I_LU4_BD2 (flagship at the YAML's f32)",
+                   val_args(root, ckpt, EVAL_BATCH, True, bf16=False), ckpt,
+                   cfg, workdir, EVAL_WINDOWS, EVAL_BATCH, H, W)
+    # 12b. val on MultiFlow at f32: E_I_LU5_BD10 at full width
+    mf = f32_val("MultiFlow E_I_LU5_BD10", mf_val_args(
+        mf_root, mf_ckpt, MF_VAL_BATCH), mf_ckpt, mf_cfg, workdir, MF_VAL,
+        MF_VAL_BATCH, MF_H, MF_W)
+    # 12c. predict_dsec at f32 against the plain twins, TF32 off
+    pred = predict_run(workdir / "submission_f32", root, ckpt, cfg,
+                       bf16=False, plain=True)
+    pred["tf32_flags_after"] = list(tf32_state())
+    emit("f32_predict", **pred)
+    check(tf32_state() == (True, True),
+          f"12c: predict_dsec left the TF32 flags at {tf32_state()}")
+
+    # 12d. the pin's A/B
+    ab = pin_ab(ckpt, seed)
+
+    # 12e. the all-level lookup at the path's two new f32 tables: the
+    # flagship's 11 target-level pairs at 12a's batch, and MultiFlow's 12
+    # slots at 48x64 queries at 12b's batch
+    tables = {}
+    for what, n, (h1, w1), targets in (
+            ("flagship f32 val", EVAL_BATCH, (H1, W1), PYRAMID_TARGETS),
+            ("MultiFlow E_I f32 val", MF_VAL_BATCH, (MF_H // 8, MF_W // 8),
+             level_target_indices(mf_cfg.levels_per_target))):
+        rec = check_lookup_pyramid(n, h1, w1, torch.float32, seed,
+                                   targets=targets)
+        rec["targets"] = [list(t) for t in targets]
+        emit("kernel", name=klookup.NAME, table=what, **rec)
+        check(rec["ok"], f"12e: all-level lookup at the {what} table "
+                         f"disagrees: {rec}")
+        tables[what] = rec
+    emit("f32_eval_phase", seconds=time.perf_counter() - t_phase)
+    return {"dsec": dsec, "multiflow": mf, "predict": pred, "pin": ab,
+            "tables": tables}
+
+
+# ---------------------------------------------------------------------------
 
 
 def main() -> int:
@@ -2541,7 +2808,7 @@ def main() -> int:
                          "variants (phase lookup_probe), and stop")
     ap.add_argument("--eval-only", action="store_true",
                     help="after the build, run only the evaluation path "
-                         "(phase 7), and stop")
+                         "(phases 7 and 12), and stop")
     ap.add_argument("--train-only", action="store_true",
                     help="after the build, run only MultiFlow training "
                          "through the training CLI (phase 9), and stop")
@@ -2560,8 +2827,6 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
         return 1
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"],
@@ -2593,6 +2858,7 @@ def main() -> int:
         if args.eval_only:
             with tempfile.TemporaryDirectory() as tmp:
                 eval_phase(Path(tmp), args.seed)
+                f32_eval_phase(Path(tmp), args.seed)
         if args.train_only:
             with tempfile.TemporaryDirectory() as tmp:
                 train_phase(Path(tmp), args.seed, profile_dir=args.profile)
@@ -2937,25 +3203,28 @@ def main() -> int:
         check(loss_rel <= loss_bound and grad_worst <= bound,
               f"train parity {precision}: {loss_rel} {grad_worst}")
 
-    # 7. the DSEC evaluation path: recordings written to disk, the device
-    # voxelizer, val and predict_dsec through their entry points
     with tempfile.TemporaryDirectory() as tmp:
+        # 7. the DSEC evaluation path: recordings written to disk, the
+        # device voxelizer, val and predict_dsec through their entry points
         eval_counts, eval_opt_counts = eval_phase(Path(tmp), args.seed)
 
-    # 9. MultiFlow training through the training CLI: fabricated samples,
-    # two epochs with validation, checkpoints and media, the resume, step 1
-    # on the plain twins, the lookups at these shapes; 10. data-parallel
-    # training, the CLI's runs on phase 9's samples
-    with tempfile.TemporaryDirectory() as tmp:
+        # 9. MultiFlow training through the training CLI: fabricated
+        # samples, two epochs with validation, checkpoints and media, the
+        # resume, step 1 on the plain twins, the lookups at these shapes;
+        # 10. data-parallel training, the CLI's runs on phase 9's samples
         mf_counts, mf_fwd, mf_bwd = train_phase(Path(tmp), args.seed,
                                                 profile_dir=args.profile)
         dist_counts = dist_phase(Path(tmp), args.seed)
 
-    # 11. streaming inference over raw events at full width, the four
-    # released families through the parity tool at their native sizes, the
-    # lookup at their tables
-    with tempfile.TemporaryDirectory() as tmp:
+        # 11. streaming inference over raw events at full width, the four
+        # released families through the parity tool at their native sizes,
+        # the lookup at their tables
         p11 = stream_phase(Path(tmp), args.seed, profile_dir=args.profile)
+
+        # 12. val (DSEC and MultiFlow) and predict_dsec at the config's own
+        # f32 on phase 7's recordings and phase 9's samples, TF32 on in the
+        # caller; the pin's A/B; the lookup at the path's f32 tables
+        p12 = f32_eval_phase(Path(tmp), args.seed)
 
     # 8. kernels line: the lookups per iteration at the flagship shapes
     # (bf16; the backward also at the training shapes, f32), one launch
@@ -3001,8 +3270,13 @@ def main() -> int:
         "launches_released": {
             k: r["launches"][klookup.NAME]
             for k, r in p11["families"].items()},
+        "launches_eval_f32": {
+            "dsec_val": p12["dsec"]["launches"][klookup.NAME],
+            "multiflow_val": p12["multiflow"]["launches"][klookup.NAME],
+            "predict_dsec": p12["predict"]["launches"][klookup.NAME]},
         "max_abs_err": max(r["max_abs_err"] for r in [
-            *per_pyr, mf_fwd, *p11["tables"].values()]),
+            *per_pyr, mf_fwd, *p11["tables"].values(),
+            *p12["tables"].values()]),
         "ms": fwd["ms"],
         "plain_ms": fwd["plain_ms"],
         "bound_ms": fwd["bound_ms"],
@@ -3013,6 +3287,9 @@ def main() -> int:
         "events_only_and_stream": {
             k: {**table_fields(r), "per": "iteration, all four levels"}
             for k, r in p11["tables"].items()},
+        "f32_eval": {
+            k: {**table_fields(r), "per": "iteration, all four levels"}
+            for k, r in p12["tables"].items()},
     }, {
         "name": klookup.BWD_NAME,
         "route": "cuda",

@@ -96,6 +96,26 @@ def test_bezier_zeros_and_delta_update():
     assert t.degree == j.degree == 2
 
 
+def test_bezier_from_flow_and_metadata():
+    """tests/test_ops_bezier.py:85-91 for both packages: the degree-1 curve
+    of a two-view flow is linear in t; the shape and dtype accessors."""
+    flow = np.random.default_rng(5).standard_normal(
+        (1, 4, 6, 2)).astype(np.float32)
+    t = tbez.BezierCurves.from_flow(torch.from_numpy(flow))
+    j = jbez.BezierCurves.from_flow(jnp.asarray(flow))
+    np.testing.assert_array_equal(t.params.numpy(), np.asarray(j.params))
+    np.testing.assert_allclose(t.flow_at(0.5).numpy(),
+                               np.asarray(j.flow_at(0.5)), **TOL)
+    np.testing.assert_allclose(t.flow_at(0.5).numpy(), 0.5 * flow,
+                               rtol=1e-6)
+    assert ((t.batch, t.height, t.width, t.degree)
+            == (j.batch, j.height, j.width, j.degree) == (1, 4, 6, 1))
+    assert t.dtype == torch.float32 and j.dtype == jnp.float32
+    assert t.astype(torch.bfloat16).dtype == torch.bfloat16
+    with pytest.raises(ValueError):
+        tbez.BezierCurves.from_flow(torch.zeros(1, 4, 6, 3))
+
+
 @pytest.mark.parametrize("factor", [2, 8])
 def test_bezier_upsampled(factor):
     rng = np.random.default_rng(5)

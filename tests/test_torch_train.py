@@ -440,6 +440,50 @@ def test_epe_ae_multi_match_jax(gate):
     _pair_close(got, jmetrics.ae_multi(_j(srcs), _j(tgts), _j(none)))
 
 
+@pytest.mark.parametrize("mask", ["none", "some", "empty"])
+def test_l1_channel_masked_metric_matches_jax(mask):
+    """The masked L1 value with a valid flag of 1, also where no pixel is
+    valid."""
+    src, tgt = _flows(11, n=2)
+    m = {"none": None,
+         "some": np.random.default_rng(12).random(src.shape[:-1]) < 0.4,
+         "empty": np.zeros(src.shape[:-1], bool)}[mask]
+    got = tmetrics.l1_channel_masked_metric(
+        torch.from_numpy(src), torch.from_numpy(tgt),
+        None if m is None else torch.from_numpy(m))
+    want = jmetrics.l1_channel_masked_metric(
+        jnp.asarray(src), jnp.asarray(tgt), None if m is None else
+        jnp.asarray(m))
+    _pair_close(got, want)
+    assert float(got[1]) == 1.0
+
+
+@pytest.mark.parametrize("no_top_padding", [False, True])
+@pytest.mark.parametrize("hw", [(37, 53), (32, 40), (30, 39)])
+def test_input_padder_matches_jax(no_top_padding, hw):
+    """tests/test_padder_timers.py:29-34 for both packages: in KITTI's mode
+    (no_top_padding) every padding row goes to the bottom, so the top row
+    is the input's; pad and unpad equal the JAX padder's."""
+    from bflow_tpu.utils.padder import InputPadder as JaxPadder
+
+    from bflow_tpu_torch.utils.padder import InputPadder
+
+    x = np.random.default_rng(13).standard_normal(
+        (2, *hw, 3)).astype(np.float32)
+    tp = InputPadder(min_size=8, no_top_padding=no_top_padding)
+    jp = JaxPadder(min_size=8, no_top_padding=no_top_padding)
+    assert tp._pads(*hw) == jp._pads(*hw)
+    got = tp.pad(torch.from_numpy(x))
+    np.testing.assert_array_equal(got.numpy(), np.asarray(jp.pad(
+        jnp.asarray(x))))
+    assert got.shape[1] % 8 == 0 and got.shape[2] % 8 == 0
+    if no_top_padding:
+        cols = tp._pads(*hw)[1]
+        np.testing.assert_array_equal(
+            got[:, 0, cols[0]:cols[0] + hw[1]].numpy(), x[:, 0])
+    np.testing.assert_array_equal(tp.unpad(got, *hw).numpy(), x)
+
+
 def test_lin_assumption_and_metric_bank_match_jax():
     src = _flows(10, n=1)[0]
     ts = (0.25, 0.5, 1.0)
