@@ -44,6 +44,7 @@ from bflow_tpu_torch.models.update import BasicUpdateBlock, compute_dtype_of
 from bflow_tpu_torch.ops.bezier import BezierCurves
 from bflow_tpu_torch.ops.sampler import coords_grid
 from bflow_tpu_torch.utils.precision import full_f32
+from bflow_tpu_torch.utils.timers import span
 
 def bezier_to_channels(bez: BezierCurves) -> torch.Tensor:
     """(N,H,W,P,2) -> (N,2P,H,W), dimension-major (x_P1..x_Pn, y_P1..)."""
@@ -114,8 +115,10 @@ class RAFTSpline(nn.Module):
         (utils/precision.py: TF32 off inside, the caller's flags restored
         after), as the JAX package pins its f32 work to HIGHEST; the
         backward of the training forward runs outside this call, so
-        train.make_train_step pins its backward itself."""
-        with full_f32():
+        train.make_train_step pins its backward itself. Opens the spans
+        ``bflow.forward``, ``bflow.encoders``, ``bflow.corr`` and one
+        ``bflow.update`` per iteration (utils/timers.py)."""
+        with span("forward"), full_f32():
             if test_mode:
                 with torch.no_grad():
                     return self._run(voxel_grid, images, iters, flow_init,
@@ -123,18 +126,11 @@ class RAFTSpline(nn.Module):
             return self._run(voxel_grid, images, iters, flow_init,
                              test_mode=False)
 
-    def _run(self, voxel_grid, images, iters, flow_init, test_mode):
+    def _encode(self, voxel_grid, images):
+        """The feature encoders and the context encoder: (reference and
+        target feature maps, the context grid, the GRU's initial state and
+        its context input)."""
         cfg = self.config
-        if iters is None:
-            iters = cfg.iters_test if test_mode else cfg.iters_train
-        if iters < 1:
-            raise ValueError(f"iters must be positive, got {iters}")
-        if cfg.lookup_method == "pallas_q8" and torch.is_grad_enabled():
-            raise RuntimeError(
-                "lookup_method='pallas_q8' is inference only (the int8 "
-                "lookup has no gradient, as in the JAX package): call with "
-                "test_mode=True or under torch.no_grad(), or train with "
-                "lookup_method='pallas'")
         cdt = compute_dtype_of(cfg)
         f32_corr = cfg.corr_precision == "float32"
         fmap_refs: List[torch.Tensor] = []
@@ -175,14 +171,32 @@ class RAFTSpline(nn.Module):
         cnet_out = self.cnet(context)
         net = torch.tanh(cnet_out[:, :cfg.hidden_dim])
         inp = torch.relu(cnet_out[:, cfg.hidden_dim:])
+        return fmap_refs, fmap_tgts, context, net, inp
+
+    def _run(self, voxel_grid, images, iters, flow_init, test_mode):
+        cfg = self.config
+        if iters is None:
+            iters = cfg.iters_test if test_mode else cfg.iters_train
+        if iters < 1:
+            raise ValueError(f"iters must be positive, got {iters}")
+        if cfg.lookup_method == "pallas_q8" and torch.is_grad_enabled():
+            raise RuntimeError(
+                "lookup_method='pallas_q8' is inference only (the int8 "
+                "lookup has no gradient, as in the JAX package): call with "
+                "test_mode=True or under torch.no_grad(), or train with "
+                "lookup_method='pallas'")
+        with span("encoders"):
+            fmap_refs, fmap_tgts, context, net, inp = self._encode(
+                voxel_grid, images)
 
         # (T, N, D, h1, w1) -> (T, N, h1, w1, D)
-        pyramid = build_pyramid_for_method(
-            torch.stack(fmap_refs).permute(0, 1, 3, 4, 2),
-            torch.stack(fmap_tgts).permute(0, 1, 3, 4, 2),
-            cfg.levels_per_target, cfg.corr_precision, cfg.lookup_method,
-            cfg.onehot_from_level,
-        )
+        with span("corr"):
+            pyramid = build_pyramid_for_method(
+                torch.stack(fmap_refs).permute(0, 1, 3, 4, 2),
+                torch.stack(fmap_tgts).permute(0, 1, 3, 4, 2),
+                cfg.levels_per_target, cfg.corr_precision,
+                cfg.lookup_method, cfg.onehot_from_level,
+            )
 
         N, _, H, W = context.shape
         if H % 8 or W % 8:
@@ -207,12 +221,14 @@ class RAFTSpline(nn.Module):
                                precision=cfg.corr_precision,
                                onehot_from_level=cfg.onehot_from_level)
             bez_ch = bezier_to_channels(bezier)
-            if remat:
-                net, mask, delta = checkpoint(
-                    self.update_block, net, inp, corr, bez_ch,
-                    use_reentrant=False)
-            else:
-                net, mask, delta = self.update_block(net, inp, corr, bez_ch)
+            with span("update"):
+                if remat:
+                    net, mask, delta = checkpoint(
+                        self.update_block, net, inp, corr, bez_ch,
+                        use_reentrant=False)
+                else:
+                    net, mask, delta = self.update_block(net, inp, corr,
+                                                         bez_ch)
             bezier = bezier.delta_update(
                 channels_to_bezier_delta(delta, cfg.bezier_degree))
             if not test_mode or itr == iters - 1:

@@ -26,6 +26,7 @@ bins), ``img`` (2, N, H, W, 3), ``flow`` (N, H, W, 2) for DSEC or
 
 from __future__ import annotations
 
+import itertools
 from dataclasses import dataclass
 from typing import Any, Dict, Iterable, Optional, Tuple
 
@@ -43,6 +44,7 @@ from bflow_tpu_torch.utils.losses import (
 )
 from bflow_tpu_torch.utils.padder import InputPadder
 from bflow_tpu_torch.utils.precision import full_f32
+from bflow_tpu_torch.utils.timers import span
 
 EV_REPR, IMG, FLOW, FLOW_VALID = (K.EV_REPR.value, K.IMG.value,
                                   K.FLOW.value, K.FLOW_VALID.value)
@@ -107,7 +109,8 @@ def make_loss_fn(model: torch.nn.Module, task: TaskConfig, forward=None):
     train step's loss_fn (the metrics are detached). ``forward`` runs the
     model (default: the model itself; the train step's DDP wrapper under
     a process group, where the loss and metrics are the global batch's,
-    as the module docstring says)."""
+    as the module docstring says). The loss and the metrics, after the
+    forward, run in the span ``bflow.loss`` (utils/timers.py)."""
     cfg = model.config
     forward = model if forward is None else forward
 
@@ -116,34 +119,36 @@ def make_loss_fn(model: torch.nn.Module, task: TaskConfig, forward=None):
         ranks = is_initialized()
         preds = forward(voxel, images, iters=cfg.iters_train,
                         test_mode=False)
-        if task.dataset == "dsec":
-            count = data_parallel_count(flow, valid) if ranks else None
-            flows = [p.flow_at(1.0) for p in preds]
-            loss = l1_seq_loss_masked(flows, flow, valid, task.gamma, count)
-            loss_key = "train/l1_seq_loss"
-        else:
-            ts = task.supervision_timestamps
-            targets = [flow[i] for i in range(len(ts))]
-            # MultiFlow is unmasked and every time has the same pixels
-            count = data_parallel_count(targets[0]) if ranks else None
-            flows_it = [[p.flow_at(t) for t in ts] for p in preds]
-            if task.multi_loss:
-                loss = l1_multi_seq_loss_masked(
-                    flows_it, targets, None, task.gamma,
-                    None if count is None else [count] * len(ts))
-                loss_key = "train/l1_multi_seq_loss"
-            else:
-                loss = l1_seq_loss_masked([row[-1] for row in flows_it],
-                                          targets[-1], None, task.gamma,
+        with span("loss"):
+            if task.dataset == "dsec":
+                count = data_parallel_count(flow, valid) if ranks else None
+                flows = [p.flow_at(1.0) for p in preds]
+                loss = l1_seq_loss_masked(flows, flow, valid, task.gamma,
                                           count)
                 loss_key = "train/l1_seq_loss"
-        with torch.no_grad():
-            last = BezierCurves(preds[-1].params.detach())
-            metrics = {loss_key: M.scalar_metric(loss.detach())}
-            metrics.update(_family_metrics(task, "train", last.flow_at,
-                                           flow, valid))
-            if ranks:
-                metrics = M.global_metrics(metrics)
+            else:
+                ts = task.supervision_timestamps
+                targets = [flow[i] for i in range(len(ts))]
+                # MultiFlow is unmasked and every time has the same pixels
+                count = data_parallel_count(targets[0]) if ranks else None
+                flows_it = [[p.flow_at(t) for t in ts] for p in preds]
+                if task.multi_loss:
+                    loss = l1_multi_seq_loss_masked(
+                        flows_it, targets, None, task.gamma,
+                        None if count is None else [count] * len(ts))
+                    loss_key = "train/l1_multi_seq_loss"
+                else:
+                    loss = l1_seq_loss_masked([row[-1] for row in flows_it],
+                                              targets[-1], None, task.gamma,
+                                              count)
+                    loss_key = "train/l1_seq_loss"
+            with torch.no_grad():
+                last = BezierCurves(preds[-1].params.detach())
+                metrics = {loss_key: M.scalar_metric(loss.detach())}
+                metrics.update(_family_metrics(task, "train", last.flow_at,
+                                               flow, valid))
+                if ranks:
+                    metrics = M.global_metrics(metrics)
         return loss, metrics
 
     return loss_fn
@@ -174,19 +179,31 @@ def make_train_step(model: torch.nn.Module, task: TaskConfig,
     step's (value * weight, weight) added, on the device; with
     ``with_grad_norms`` also grad_norm_tree of the unclamped gradients.
     Under a process group the forward runs through ``data_parallel``.
-    Forward and backward run in full f32 (utils/precision.py)."""
+    Forward and backward run in full f32 (utils/precision.py). A step is
+    the span ``bflow.step#<call>`` (its calls counted from 0), around
+    ``bflow.forward``, ``bflow.loss``, ``bflow.backward`` and two
+    ``bflow.optimizer`` (the gradients' reset; clamp, AdamW and the
+    schedule) (utils/timers.py)."""
     loss_fn = make_loss_fn(
         model, task, data_parallel(model) if is_initialized() else None)
+    calls = itertools.count()
 
     def train_step(batch, metric_acc=None):
+        with span("step", next(calls)):
+            return _train(batch, metric_acc)
+
+    def _train(batch, metric_acc):
         model.train()
-        optimizer.zero_grad(set_to_none=True)
+        with span("optimizer"):
+            optimizer.zero_grad(set_to_none=True)
         with full_f32():  # the backward too: it runs outside the forward
             loss, metrics = loss_fn(batch)
-            loss.backward()
+            with span("backward"):
+                loss.backward()
         norms = grad_norm_tree(model) if with_grad_norms else None
-        optimizer.step()  # clamps the gradients first (ClampedAdamW)
-        scheduler.step()
+        with span("optimizer"):
+            optimizer.step()  # clamps the gradients first (ClampedAdamW)
+            scheduler.step()
         out = metrics
         if metric_acc is not None:
             out = {k: (metric_acc[k][0] + v * w, metric_acc[k][1] + w)
@@ -237,13 +254,16 @@ def make_eval_step(model: torch.nn.Module, task: TaskConfig,
     ``over_ranks`` (default: under a process group) the metrics are the
     global batch's, a collective every rank must join; False keeps them
     this rank's (the media of rank 0 alone). Runs in full f32
-    (utils/precision.py)."""
+    (utils/precision.py), in the span ``bflow.step#<call>`` (its calls
+    counted from 0; utils/timers.py), which holds the forward's spans and,
+    after them, the metrics and the prediction."""
     cfg = model.config
     if over_ranks is None:
         over_ranks = is_initialized()
+    calls = itertools.count()
 
     def eval_step(batch):
-        with full_f32():
+        with span("step", next(calls)), full_f32():
             return _eval(batch)
 
     def _eval(batch):

@@ -207,8 +207,8 @@ EXEMPT: Dict[str, Tuple[Optional[str], str]] = {
         "a metrics pytree -> its keys"),
     # utils
     "utils/timers.py:DeviceTimer(outputs_getter)": (
-        None, "block_until_ready on the block's outputs -> "
-              "torch.cuda.synchronize()"),
+        None, "block_until_ready on the block's outputs -> a CUDA event "
+              "pair, read at the summary"),
 }
 
 

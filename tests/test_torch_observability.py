@@ -349,3 +349,33 @@ def test_timers_registry(capsys, monkeypatch):
     assert "device_block: mean" in out
     with pytest.raises(AssertionError):
         timers.DeviceTimer()
+
+    # on the card a DeviceTimer block records its CUDA event pair and does
+    # not wait for the device: the summary reads the pairs
+    syncs = []
+
+    class Event:
+        def __init__(self, enable_timing=False):
+            assert enable_timing
+
+        def record(self):
+            pass
+
+        def synchronize(self):
+            syncs.append(self)
+
+        def elapsed_time(self, end):
+            return 2.0  # ms
+
+    monkeypatch.setattr(torch.cuda, "is_initialized", lambda: True)
+    monkeypatch.setattr(torch.cuda, "Event", Event)
+    monkeypatch.setattr(torch.cuda, "synchronize",
+                        lambda *a, **k: syncs.append(None))
+    monkeypatch.setattr(timers, "_pending", [])
+    for _ in range(3):
+        with timers.DeviceTimer(timer_name="card_block"):
+            pass
+    assert not syncs and not timers.cuda_timers["card_block"]
+    timers.print_timing_info(warmup_iters=1)
+    assert timers.cuda_timers["card_block"] == [2e-3] * 3
+    assert "card_block: mean 2.00 ms over 2 samples" in capsys.readouterr().out
