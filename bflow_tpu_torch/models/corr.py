@@ -108,6 +108,21 @@ def level_target_indices(
     ]
 
 
+def _take_targets(x: torch.Tensor, idx: Sequence[int]) -> torch.Tensor:
+    """x[list(idx)] along axis 0 without an index tensor, which CUDA
+    would copy from the host and wait for: a slice for a contiguous run
+    of indices, else a stack of integer-indexed views laid out in x's
+    memory order, so the result has the strides indexing gives."""
+    idx = tuple(idx)
+    start = idx[0]
+    if idx == tuple(range(start, start + len(idx))):
+        return x[start:start + len(idx)]
+    perm = sorted(range(x.dim()), key=lambda d: (d != 0, -x.stride(d)))
+    xp = x.permute(perm)
+    inverse = sorted(range(x.dim()), key=perm.__getitem__)
+    return torch.stack([xp[i] for i in idx]).permute(inverse)
+
+
 def build_corr_pyramid(fmap_ref: torch.Tensor, fmap_tgt: torch.Tensor,
                        levels_per_target: Sequence[int],
                        precision: str = "float32") -> List[CorrLevel]:
@@ -126,8 +141,8 @@ def build_corr_pyramid(fmap_ref: torch.Tensor, fmap_tgt: torch.Tensor,
     prev_idx, prev_tgt = per_level[0], fmap_tgt
     for idx_tuple in per_level[1:]:
         sel = [prev_idx.index(i) for i in idx_tuple]
-        tgt = _avg_pool_2x2(prev_tgt[sel])
-        ref = fmap_ref[list(idx_tuple)]
+        tgt = _avg_pool_2x2(_take_targets(prev_tgt, sel))
+        ref = _take_targets(fmap_ref, idx_tuple)
         pyramid.append(
             (idx_tuple, all_pairs_correlation(ref, tgt, precision)))
         prev_idx, prev_tgt = idx_tuple, tgt

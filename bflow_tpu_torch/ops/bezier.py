@@ -3,7 +3,11 @@
 Per pixel, the model regresses the control points P1..Pn of a degree-n
 Bezier curve (P0 == 0, the pixel itself); the flow at a time t in [0, 1]
 is the curve evaluated at t. Evaluation times are Python floats, so the
-Bernstein coefficients are computed on the host in float64 once per call.
+Bernstein coefficients are computed on the host in float64, cast there to
+the curve's type, and kept on its device in a small LRU cache keyed by
+(degree, time, type, device): the lookup and supervision times are
+static, so after the first step no call copies to the device, and a miss
+on CUDA copies from pinned memory without waiting for the stream.
 
 Layout as in the JAX package: params (N, H, W, degree, 2), last axis
 (x, y).
@@ -12,6 +16,8 @@ Layout as in the JAX package: params (N, H, W, degree, 2), last axis
 from __future__ import annotations
 
 import math
+import threading
+from collections import OrderedDict
 from dataclasses import dataclass
 from typing import Sequence, Union
 
@@ -22,6 +28,20 @@ from bflow_tpu_torch.ops.upsample import convex_upsample
 from bflow_tpu_torch.utils.precision import full_f32
 
 TimeLike = Union[float, int, Sequence[float]]
+
+COEFF_CACHE_SIZE = 256  # coefficient vectors kept on the devices
+
+# what flow_at's coefficient cache did since the last reset_counters()
+coeff_hits = 0
+coeff_misses = 0
+
+_coeffs: "OrderedDict[tuple, torch.Tensor]" = OrderedDict()
+_coeffs_lock = threading.Lock()
+
+
+def reset_counters() -> None:
+    global coeff_hits, coeff_misses
+    coeff_hits = coeff_misses = 0
 
 
 def bezier_coefficients(degree: int, timestamps: Sequence[float]) -> np.ndarray:
@@ -39,6 +59,35 @@ def bezier_coefficients(degree: int, timestamps: Sequence[float]) -> np.ndarray:
         i = j + 1
         out[:, j] = math.comb(degree, i) * (1.0 - ts) ** (degree - i) * ts**i
     return out
+
+
+def _coefficients(degree: int, t: float, dtype: torch.dtype,
+                  device: torch.device) -> torch.Tensor:
+    """(degree,) Bernstein coefficients at time t on the device, from the
+    LRU cache; a miss casts the float64 row on the host and copies it
+    (from pinned memory without a wait on CUDA)."""
+    global coeff_hits, coeff_misses
+    key = (degree, t, dtype, device)
+    with _coeffs_lock:
+        coeff = _coeffs.get(key)
+        if coeff is not None:
+            coeff_hits += 1
+            _coeffs.move_to_end(key)
+            return coeff
+        coeff_misses += 1
+        # a tensor made under inference_mode could not be saved for a
+        # later backward
+        with torch.inference_mode(False):
+            host = torch.as_tensor(bezier_coefficients(degree, (t,))[0],
+                                   dtype=dtype)
+            if device.type == "cuda":
+                coeff = host.pin_memory().to(device, non_blocking=True)
+            else:
+                coeff = host.to(device)
+        _coeffs[key] = coeff
+        if len(_coeffs) > COEFF_CACHE_SIZE:
+            _coeffs.popitem(last=False)
+        return coeff
 
 
 @dataclass(frozen=True)
@@ -95,7 +144,9 @@ class BezierCurves:
 
         Scalar time -> (N, H, W, 2); sequence of T times -> (T, N, H, W, 2).
         The contraction over the control points runs in full f32
-        (utils/precision.py), as the JAX package's runs at HIGHEST.
+        (utils/precision.py), as the JAX package's runs at HIGHEST. The
+        coefficients come from the device cache (module docstring), so a
+        call does not wait for the device.
         """
         scalar = isinstance(times, (int, float))
         ts = (float(times),) if scalar else tuple(float(t) for t in times)
@@ -107,10 +158,8 @@ class BezierCurves:
                 # all Bernstein terms vanish except the last control point
                 flows.append(self.params[..., -1, :])
             else:
-                coeff = torch.as_tensor(
-                    bezier_coefficients(self.degree, (t,))[0],
-                    dtype=self.params.dtype, device=self.params.device,
-                )
+                coeff = _coefficients(self.degree, t, self.params.dtype,
+                                      self.params.device)
                 with full_f32():
                     flows.append(torch.einsum("nhwpd,p->nhwd",
                                               self.params, coeff))

@@ -164,6 +164,70 @@ def test_pyramid_plain_equals_per_level_composition(grid, dtype):
     assert (klookup.launches, klookup.bwd_launches) == before
 
 
+def _pyramid_list_indexed(fmap_ref, fmap_tgt, levels, precision):
+    """build_corr_pyramid with each level's targets picked by indexing
+    with Python lists (an index tensor, which CUDA copies and waits for):
+    the formulation that build_corr_pyramid's slices and stacks must
+    reproduce."""
+    per_level = tcorr.level_target_indices(levels)
+    out = [(per_level[0],
+            tcorr.all_pairs_correlation(fmap_ref, fmap_tgt, precision))]
+    prev_idx, prev_tgt = per_level[0], fmap_tgt
+    for idx in per_level[1:]:
+        sel = [prev_idx.index(i) for i in idx]
+        tgt = tcorr._avg_pool_2x2(prev_tgt[sel])
+        out.append((idx, tcorr.all_pairs_correlation(
+            fmap_ref[list(idx)], tgt, precision)))
+        prev_idx, prev_tgt = idx, tgt
+    return out
+
+
+@pytest.mark.parametrize("levels", [(1, 1, 1, 4, 4), (1, 1, 1, 1, 4, 4),
+                                    (4, 1, 4, 1)])
+@pytest.mark.parametrize("dtype", list(DTYPES))
+def test_pyramid_equals_list_indexed_build(levels, dtype):
+    """The released DSEC (3, 4) and MultiFlow (4, 5) level targets, and a
+    non-contiguous list: every level's targets and volume equal the
+    list-indexed build's bit for bit, on features laid out as the model
+    stacks them (feature axis permuted last), and so do the features'
+    gradients through every level."""
+    tdt = DTYPES[dtype][0]
+    rng = np.random.default_rng(len(levels))
+    T, N, D, h, w = len(levels), 2, 16, 10, 14
+
+    def features():
+        x = rng.standard_normal((T, N, D, h, w)).astype(np.float32)
+        return torch.from_numpy(x).to(tdt).permute(0, 1, 3, 4, 2)
+
+    ref, tgt = features(), features()
+    grads = {}
+    for name, build in (("slices", tcorr.build_corr_pyramid),
+                        ("lists", _pyramid_list_indexed)):
+        r, t = (x.detach().requires_grad_() for x in (ref, tgt))
+        pyr = build(r, t, levels, dtype)
+        grads[name] = pyr, torch.autograd.grad(
+            sum((vol.float() * (lvl + 1)).sum()
+                for lvl, (_, vol) in enumerate(pyr)), (r, t))
+    (got, got_g), (want, want_g) = grads["slices"], grads["lists"]
+    assert len(got) == len(want) == max(levels)
+    for (gi, gv), (wi, wv) in zip(got, want):
+        assert gi == wi
+        assert gv.dtype == wv.dtype and torch.equal(gv, wv)
+    assert all(torch.equal(a, b) for a, b in zip(got_g, want_g))
+
+
+@pytest.mark.parametrize("idx", [(3, 4), (2,), (0, 1, 2, 3, 4), (4, 1, 4, 1),
+                                 (1, 3), (4, 3)])
+def test_take_targets_gives_indexing_values_and_strides(idx):
+    """The pyramid's pick of targets equals x[list(idx)] in values and in
+    strides, on the model's permuted layout and on a contiguous one."""
+    base = torch.arange(5 * 2 * 3 * 4 * 6, dtype=torch.float32)
+    for x in (base.reshape(5, 2, 3, 4, 6).permute(0, 1, 3, 4, 2),
+              base.reshape(5, 2, 4, 6, 3)):
+        got, want = tcorr._take_targets(x, idx), x[list(idx)]
+        assert torch.equal(got, want) and got.stride() == want.stride()
+
+
 @pytest.mark.parametrize("dtype", list(DTYPES))
 def test_pyramid_bwd_plain_accumulates_in_backward_order(dtype):
     """Three iterations' cotangents into one accumulator equal, bit for

@@ -5,8 +5,10 @@ match their plain versions at the flagship shapes (the all-level lookup
 forward and accumulating backward too; the forward also over pallas_q8's
 int8 levels, and on ragged shapes), the conv kernels in every tile
 variant, an encoder under the conv kernels stays channels-last between
-convs, the sink hands the kernels' dVol to autograd, and a model launches
-one all-level lookup per iteration each way.
+convs, the sink hands the kernels' dVol to autograd, a model launches
+one all-level lookup per iteration each way, and an eval step and a train
+step make no synchronising call (on the CPU: every Bezier coefficient
+comes from the cache).
 
 JAX is imported inside the tests that use it, so that the GPU tests run on
 a machine without JAX:
@@ -324,6 +326,91 @@ def test_sink_gradients_on_gpu(cuda_device):
         want = torch.autograd.grad(loss_p, leaves_p)
     for g, w, tol in zip(got, want, (1e-5, 1e-5, 1e-4)):
         assert (g - w).abs().max() <= tol * w.abs().max()
+
+
+# the released families' shapes (benchmark/configs/), at 64x64 and two
+# iterations: DSEC degree 2 over targets (1, 2, 3, 4) at depths (1, 1, 1,
+# 4); MultiFlow degree 10 over (8, ..., 40) at (1, 1, 1, 1, 4) with the
+# multi-loss at ten supervision times
+FAMILIES = {
+    "dsec": (dict(nbins_context=15, nbins_correlation=15, bezier_degree=2),
+             {}),
+    "multiflow2d": (dict(nbins_context=41, nbins_correlation=25,
+                         bezier_degree=10,
+                         ev_target_indices=(8, 16, 24, 32, 40),
+                         ev_levels=(1, 1, 1, 1, 4)),
+                    dict(multi_loss=True, supervision_timestamps=tuple(
+                        i / 10 for i in range(1, 11)))),
+}
+
+
+def _family_steps(family, device):
+    """(eval_step, train_step, batch) of a small model of the family on
+    ``device``, one warm-up call of each made."""
+    from bflow_tpu_torch.train import (TaskConfig, TrainState,
+                                       make_eval_step, make_train_step)
+
+    fields, task_kw = FAMILIES[family]
+    cfg = bt.RaftSplineConfig(iters_train=2, iters_test=2,
+                              fuse_corr_conv=True, **fields)
+    task = TaskConfig(family, **task_kw)
+    model = bt.build_model(cfg, device=device, seed=0)
+    state = TrainState.create(model, {
+        "learning_rate": 1e-4, "weight_decay": 1e-4, "gradient_clip_val": 1,
+        "lr_scheduler": {"use": True, "total_steps": 1000,
+                         "pct_start": 0.01}})
+    train_step = make_train_step(model, task, state.optimizer,
+                                 state.scheduler)
+    eval_step = make_eval_step(model, task)
+    rng = np.random.default_rng(0)
+    n, h, w = 1, 64, 64
+    flow = (n, h, w, 2) if family == "dsec" else (10, n, h, w, 2)
+    batch = {"ev_repr": rng.standard_normal((n, h, w, cfg.nbins_total)),
+             "img": rng.integers(0, 255, (2, n, h, w, 3)),
+             "flow": 3.0 * rng.standard_normal(flow),
+             "flow_valid": rng.random((n, h, w)) < 0.8}
+    batch = {k: torch.from_numpy(v.astype(bool if k == "flow_valid"
+                                          else np.float32)).to(device)
+             for k, v in batch.items()}
+    eval_step(batch)
+    train_step(batch)
+    return eval_step, train_step, batch
+
+
+@pytest.mark.parametrize("family", list(FAMILIES))
+def test_steps_take_every_bezier_coefficient_from_the_cache(family):
+    """After one warm-up call of each, an eval step and a train step make
+    no new coefficient vector: every flow_at call hits the cache."""
+    from bflow_tpu_torch.ops import bezier
+
+    eval_step, train_step, batch = _family_steps(family, "cpu")
+    bezier.reset_counters()
+    eval_step(batch)
+    train_step(batch)
+    assert bezier.coeff_misses == 0 and bezier.coeff_hits > 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("family", list(FAMILIES))
+def test_steps_make_no_synchronising_call_on_gpu(cuda_device, family):
+    """After one warm-up call of each, an eval step and a train step run
+    under torch.cuda.set_sync_debug_mode("error") without raising: the
+    host never waits for the card inside a step (flow_at's coefficients
+    come from the device cache, the pyramid picks its levels' targets
+    without index tensors), and no coefficient is copied anew."""
+    from bflow_tpu_torch.ops import bezier
+
+    eval_step, train_step, batch = _family_steps(family, cuda_device)
+    torch.cuda.synchronize()
+    bezier.reset_counters()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        eval_step(batch)
+        train_step(batch)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    assert bezier.coeff_misses == 0 and bezier.coeff_hits > 0
 
 
 @pytest.mark.cuda

@@ -3,6 +3,8 @@ the JAX package on identical numpy-seeded inputs. f32, rtol=atol=1e-5."""
 
 from __future__ import annotations
 
+from collections import OrderedDict
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -14,6 +16,7 @@ from bflow_tpu.ops import upsample as jup
 from bflow_tpu_torch.ops import bezier as tbez
 from bflow_tpu_torch.ops import sampler as tsam
 from bflow_tpu_torch.ops import upsample as tup
+from bflow_tpu_torch.utils.precision import full_f32
 from test_torch_common import one_torch_thread  # noqa: F401 (autouse)
 
 TOL = dict(rtol=1e-5, atol=1e-5)
@@ -84,6 +87,99 @@ def test_bezier_flow_at(times, degree):
     want = jbez.BezierCurves(jnp.asarray(params)).flow_at(times)
     assert tuple(got.shape) == tuple(want.shape)
     np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
+
+
+INTERIOR = tuple(i / 10 for i in range(1, 10))
+TIMES = (0.0,) + INTERIOR + (1.0,)
+
+
+def _flow_at_uncached(params, t):
+    """flow_at at one time with the coefficients copied to the params'
+    device in every call: the formula the cache must reproduce."""
+    if t == 0.0:
+        return torch.zeros_like(params[..., 0, :])
+    if t == 1.0:
+        return params[..., -1, :]
+    coeff = torch.as_tensor(
+        tbez.bezier_coefficients(params.shape[3], (t,))[0],
+        dtype=params.dtype, device=params.device)
+    with full_f32():
+        return torch.einsum("nhwpd,p->nhwd", params, coeff)
+
+
+@pytest.fixture
+def coeff_cache(monkeypatch):
+    """An empty coefficient cache and zeroed counters for the case."""
+    monkeypatch.setattr(tbez, "_coeffs", OrderedDict())
+    tbez.reset_counters()
+    yield tbez
+    tbez.reset_counters()
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("degree", [1, 2, 10])
+@pytest.mark.parametrize("call", ["scalar", "sequence"])
+def test_bezier_flow_at_cached_equals_uncached(coeff_cache, call, degree,
+                                               dtype):
+    """The cached coefficients give flow_at bit for bit the flows of a
+    host copy per call; the first call misses once per time strictly
+    inside (0, 1), the second only hits."""
+    params = (torch.from_numpy(np.random.default_rng(degree).standard_normal(
+        (2, 3, 4, degree, 2)).astype(np.float32)) * 5).to(dtype)
+    curve = tbez.BezierCurves(params)
+    want = torch.stack([_flow_at_uncached(params, t) for t in TIMES])
+
+    def flows():
+        if call == "scalar":
+            return torch.stack([curve.flow_at(t) for t in TIMES])
+        return curve.flow_at(TIMES)
+
+    for n in (1, 2):
+        got = flows()
+        assert got.dtype == dtype and torch.equal(got, want)
+        assert coeff_cache.coeff_misses == len(INTERIOR)
+        assert coeff_cache.coeff_hits == (n - 1) * len(INTERIOR)
+    assert set(coeff_cache._coeffs) == {(degree, t, dtype, params.device)
+                                        for t in INTERIOR}
+
+
+def test_bezier_coeff_cache_stays_within_its_bound(coeff_cache,
+                                                   monkeypatch):
+    """Past COEFF_CACHE_SIZE distinct times the least recently used
+    entry goes; results stay equal to the uncached formula."""
+    monkeypatch.setattr(tbez, "COEFF_CACHE_SIZE", 8)
+    params = torch.from_numpy(np.random.default_rng(7).standard_normal(
+        (1, 2, 3, 3, 2)).astype(np.float32))
+    curve = tbez.BezierCurves(params)
+    times = [i / 41 for i in range(1, 41)]
+    for i, t in enumerate(times):
+        assert torch.equal(curve.flow_at(t), _flow_at_uncached(params, t))
+        curve.flow_at(times[0])  # kept: the most recently used
+        assert len(coeff_cache._coeffs) == min(i + 1, 8)
+    misses = coeff_cache.coeff_misses
+    assert misses == len(times)
+    curve.flow_at(times[0])
+    curve.flow_at(times[-1])
+    assert coeff_cache.coeff_misses == misses  # both still cached
+    assert torch.equal(curve.flow_at(times[1]),
+                       _flow_at_uncached(params, times[1]))
+    assert coeff_cache.coeff_misses == misses + 1  # evicted long ago
+    assert len(coeff_cache._coeffs) == 8
+
+
+def test_bezier_coeffs_cached_under_inference_mode_serve_a_backward(
+        coeff_cache):
+    """Coefficients first made under torch.inference_mode can be saved by
+    a later call that records a backward."""
+    params = torch.ones(1, 2, 2, 2, 2)
+    with torch.inference_mode():
+        tbez.BezierCurves(params).flow_at(0.25)
+    leaf = params.clone().requires_grad_()
+    tbez.BezierCurves(leaf).flow_at(0.25).sum().backward()
+    assert coeff_cache.coeff_hits == coeff_cache.coeff_misses == 1
+    want = torch.as_tensor(tbez.bezier_coefficients(2, (0.25,))[0],
+                           dtype=torch.float32)
+    assert torch.equal(leaf.grad[0, 0, 0, :, 0], want)
 
 
 def test_bezier_zeros_and_delta_update():
