@@ -30,6 +30,11 @@ from benchmark.reference.lowp import rounding as make_rounding
 
 RADIUS = 4  # the lookup radius of every released configuration
 EPS = 1e-5  # every norm's epsilon
+# volume elements of one grid_sample call: cuDNN's sampler refuses a DSEC
+# level 0 at B=16 (1.8e9 elements) and takes one at B=8 (9.2e8), so larger
+# volumes are sampled in row blocks (the same values: each output reads
+# only its own row)
+SAMPLE_ELEMS = 1 << 30
 
 
 @contextlib.contextmanager
@@ -169,9 +174,13 @@ class Reference:
             [dx.reshape(-1), dy.reshape(-1)], dim=-1)
         grid = torch.stack([2.0 * pts[..., 0] / (wl - 1) - 1.0,
                             2.0 * pts[..., 1] / (hl - 1) - 1.0], dim=-1)
-        out = F.grid_sample(vol.reshape(-1, 1, hl, wl), grid[:, :, None],
-                            mode="bilinear", padding_mode="zeros",
-                            align_corners=True)
+        rows, grid = vol.reshape(-1, 1, hl, wl), grid[:, :, None]
+        blocks = -(-rows.numel() // SAMPLE_ELEMS)
+        out = torch.cat([F.grid_sample(v, g, mode="bilinear",
+                                       padding_mode="zeros",
+                                       align_corners=True)
+                         for v, g in zip(rows.chunk(blocks),
+                                         grid.chunk(blocks))])
         win = (2 * RADIUS + 1) ** 2
         return out.reshape(tl, n, h1, w1, win).permute(1, 2, 3, 0, 4).reshape(
             n, h1, w1, tl * win)

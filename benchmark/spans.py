@@ -18,6 +18,10 @@ step's ``bflow.step#<call>`` under ``step``:
   idle_s    its intervals less their overlap with the union of device
             intervals: the device waiting while the host was in the span
 
+``span_ms(run, name, key)``: what the per-layer metrics read from the
+traced slice's ``spans`` (benchmark/trace.py keeps ``reduce``'s result
+there).
+
 ``checks(events)``: what the device ran outside every ``bflow.step``
 (kernels apart from copies and fills: only the benchmark's own host
 copies belong there), and how many device operations start before their
@@ -124,6 +128,18 @@ def reduce(events: List[Dict]) -> Dict[str, Dict[str, float]]:
     return out
 
 
+def span_ms(run, name: str, key: str):
+    """1e3 x the span's ``key`` (device_s or idle_s) in the traced slice,
+    per field, or per step in a training cell (where a request is a
+    step); None where the slice holds no such span."""
+    span = run.slice.get("spans", {}).get(name)
+    per = run.slice.get(
+        "requests" if run.workload["kind"] == "train" else "units")
+    if span is None or not per:
+        return None
+    return 1e3 * span[key] / per
+
+
 def checks(events: List[Dict]) -> Dict[str, float]:
     """outside_kernel_s / outside_copy_s: device time of kernels / of
     copies and fills launched outside every bflow.step (or with no launch
@@ -168,12 +184,11 @@ def main(argv=None) -> int:
     seen = {}
     whole = trace.reduce
 
-    def reduce_both(events, wall):
-        out = whole(events, wall)
-        seen.update(spans=reduce(events), checks=checks(events))
-        return out
+    def reduce_and_check(events, wall):
+        seen.update(checks=checks(events))
+        return whole(events, wall)
 
-    trace.reduce = reduce_both
+    trace.reduce = reduce_and_check
     run = harness.Run(args.workload, args.seed, args.seconds, True)
     run.started = STARTED
     print(json.dumps(harness.execute(run)), flush=True)
@@ -182,7 +197,7 @@ def main(argv=None) -> int:
     spans = {k: {"calls": v["calls"] / n,
                  **{m[:-2] + "_ms": 1e3 * v[m] / n
                     for m in ("wall_s", "device_s", "idle_s")}}
-             for k, v in seen["spans"].items()}
+             for k, v in s["spans"].items()}
     hooks = {k: [1e3 * s["ranges"][k] / n,
                  spans.get(v, {}).get("device_ms")]
              for k, v in HOOKS.items() if k in s["ranges"]}

@@ -1,8 +1,9 @@
 """Shared pieces of the benchmark's CPU tests: the repository root on the
-path, and the cells cut to a size a CPU test holds (every width as
-published; 64x80 frames, 2 refinement steps, small pools and event
-counts)."""
+path, the cells as BENCHMARK.json and the workload files name them, and
+the cells cut to a size a CPU test holds (every width as published; 64x80
+frames, 2 refinement steps, small pools and event counts)."""
 
+import json
 import sys
 from pathlib import Path
 
@@ -14,12 +15,21 @@ if str(ROOT) not in sys.path:
 
 from benchmark import harness  # noqa: E402
 
-CELLS = ("mf_ei.train_b3", "dsec_ei.eval_b8", "mf_ei.eval_b8")
+SPEC = json.loads((ROOT / "BENCHMARK.json").read_text())
+# the listed cells, in BENCHMARK.json's order
+CELLS = tuple(w["name"] for w in SPEC["workloads"])
 # workloads whose files are kept, and tested here, but that BENCHMARK.json
 # does not list (PERF.md, Open questions: why, and what would bring them in)
-KEPT = ("dsec_ei.latency_b1",)
+KEPT = tuple(sorted({p.stem for p in (ROOT / "benchmark" / "workloads")
+                     .glob("*.json")} - set(CELLS)))
 SMALL = {"height": 64, "width": 80, "iters": 2, "pool": 2,
          "trace_requests": 2}
+
+
+def of_kind(*kinds: str) -> list:
+    """The listed and kept cells whose traffic is one of ``kinds``."""
+    return [c for c in CELLS + KEPT
+            if harness.load("workloads", c)["kind"] in kinds]
 
 
 def small(cell: str) -> dict:

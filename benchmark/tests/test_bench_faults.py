@@ -8,19 +8,40 @@ import importlib
 import torch
 import pytest
 
-from benchmark.tests.conftest import CELLS, KEPT, run_small, small
+from benchmark import harness
+from benchmark.tests.conftest import CELLS, KEPT, of_kind, run_small, small
 from benchmark.traffic import eval as eval_kind
 from benchmark.traffic import stream as stream_kind
 from benchmark.traffic import train as train_kind
+from benchmark.traffic.base import rel
 from bflow_tpu_torch.ops import bezier
 
-F32_CELLS = [c for c in CELLS if small(c)["precision"] == "float32"]
 
-
-@pytest.mark.parametrize("cell", F32_CELLS)
+@pytest.mark.parametrize("cell", CELLS + KEPT)
 def test_sound_run_is_correct(cell):
     result, _ = run_small(cell)
     assert result["correct"], result["checks"]
+
+
+@pytest.mark.parametrize("cell", [c for c in of_kind("eval")
+                                  if small(c)["precision"] == "float32"])
+def test_f32_checks_as_before(cell):
+    """An f32 evaluation cell's numbers are those of the judge before it
+    judged bf16 cells at their own precision: flow_rel and metric_rel
+    only, equal to the last digit (the former loop, written out)."""
+    run = harness.Run(cell, 2 ** 31 + 23, 0.3, False, device="cpu",
+                      workload=small(cell))
+    c = eval_kind.Cell(run)
+    harness.serve(run, c)
+    c.release()
+    flow_worst = metric_worst = 0.0
+    for k in sorted({e for e, _ in c.kept.values()}):
+        m_ref, p_ref = c.reference(k)
+        for m, p in [a for e, a in c.kept.values() if e == k]:
+            flow_worst = max(flow_worst, rel(p, p_ref))
+            metric_worst = max(metric_worst,
+                               abs(m - m_ref) / max(abs(m_ref), 1e-30))
+    assert c.judge() == {"flow_rel": flow_worst, "metric_rel": metric_worst}
 
 
 @pytest.fixture
@@ -31,14 +52,13 @@ def altered_answer(monkeypatch):
                         lambda self, times: real(self, times) + 1.0)
 
 
-@pytest.mark.parametrize("cell", ["dsec_ei.latency_b1", "dsec_ei.eval_b8",
-                                  "mf_ei.eval_b8"])
+@pytest.mark.parametrize("cell", of_kind("stream", "eval"))
 def test_altered_answer_fails(cell, altered_answer):
     result, _ = run_small(cell)
     assert not result["correct"], result["checks"]
 
 
-@pytest.mark.parametrize("cell", ["dsec_ei.eval_b8", "mf_ei.eval_b8"])
+@pytest.mark.parametrize("cell", of_kind("eval"))
 def test_half_batch_fails(cell, monkeypatch):
     """The step sees half the batch: its metrics are the mean over that
     half, the rest of the prediction is left at zero."""

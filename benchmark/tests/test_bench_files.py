@@ -12,9 +12,10 @@ import sys
 import pytest
 
 from benchmark import harness
-from benchmark.tests.conftest import CELLS, KEPT, ROOT, small
+from benchmark.tests.conftest import CELLS, KEPT, ROOT, SPEC, run_small, small
+from benchmark.traffic import eval as eval_kind
+from bflow_tpu_torch.ops import bezier
 
-SPEC = json.loads((ROOT / "BENCHMARK.json").read_text())
 NAME = re.compile(r"^[A-Za-z0-9_][A-Za-z0-9_.-]{0,63}$")
 UNIT = re.compile(r"^[A-Za-z0-9_/%.-]{1,16}$")
 FORBIDDEN = {"jax", "jaxlib", "flax", "bflow_tpu", "chip_smoke", "scripts"}
@@ -34,7 +35,13 @@ def test_spec_shape():
     for m in SPEC["end_to_end"]:
         assert 0.01 <= m["bound"] <= 0.25
         assert m["source"] in ("host_clock", "device_trace")
-    assert [w["name"] for w in SPEC["workloads"]] == list(CELLS)
+    configs = {c["name"]: c["file"] for c in SPEC["configs"]}
+    for w in SPEC["workloads"]:
+        assert w["name"] == f"{w['config']}.{w['traffic']}", w
+        assert (ROOT / "benchmark" / "workloads" / f"{w['name']}.json"
+                ).is_file(), w
+        assert (ROOT / configs[w["config"]]).is_file(), w
+    assert set(configs) == {w["config"] for w in SPEC["workloads"]}
     assert len(json.dumps(SPEC)) < 64 * 1024
 
 
@@ -137,6 +144,76 @@ def test_cell_added_by_data_alone(tmp_path, monkeypatch):
     result = harness.execute(run, spec)
     assert result["correct"]
     assert set(result["metrics"]) == {"fields_per_s", "setup_s"}
+
+
+BF16_CELL = "dsec_ei_bf16.eval_b16"
+
+
+def _add_bf16_cell(tmp_path, monkeypatch):
+    """A copy of the benchmark's files with a bf16 evaluation cell of a new
+    configuration added as new files and BENCHMARK.json entries: the DSEC
+    events+frames model with the hand-written conv kernels switched on
+    (``pallas_conv``, ``pallas_stem``; their plain versions on the CPU), at
+    B=16 bf16 (run here at the small size). Its limit, flow_vs_bf16 4.0,
+    is set from the CPU at the small size: sound runs read 1.00-1.71, the
+    fp8 control 8.76-12.5 (24 seeds each, 2 entries a seed). Returns the
+    spec with the entries."""
+    bench = tmp_path / "benchmark"
+    shutil.copytree(ROOT / "benchmark", bench,
+                    ignore=shutil.ignore_patterns("__pycache__"))
+    config = harness.load("configs", "dsec_ei")
+    config["name"] = "dsec_ei_bf16"
+    config["precision"] = "bfloat16"
+    config["model"].update(pallas_conv=True, pallas_stem=True,
+                           corr_precision="bfloat16",
+                           compute_dtype="bfloat16")
+    (bench / "configs" / "dsec_ei_bf16.json").write_text(json.dumps(config))
+    wl = harness.load("workloads", "dsec_ei.eval_b8")
+    wl.update(config="dsec_ei_bf16", precision="bfloat16", batch=16,
+              control="fp8", why="DSEC evaluation at bf16 with the conv "
+              "kernels", limits={"flow_vs_bf16": 4.0})
+    (bench / "workloads" / f"{BF16_CELL}.json").write_text(json.dumps(wl))
+    spec = json.loads(json.dumps(SPEC))
+    spec["configs"].append({
+        "name": "dsec_ei_bf16", "source": config["source"],
+        "file": "benchmark/configs/dsec_ei_bf16.json", "reduced": [],
+        "why": "DSEC events+frames at bf16 with the conv kernels"})
+    spec["workloads"].append({"name": BF16_CELL, "config": "dsec_ei_bf16",
+                              "traffic": "eval_b16", "chips": 1,
+                              "why": wl["why"]})
+    for m in spec["end_to_end"] + spec["per_layer"]:
+        if "dsec_ei.eval_b8" in m.get("workloads", ()):
+            m["workloads"].append(BF16_CELL)
+    monkeypatch.setattr(harness, "BENCH", bench)
+    return spec
+
+
+@pytest.mark.parametrize("fault", [None, "control", "altered"])
+def test_bf16_cell_added_by_data_alone(fault, tmp_path, monkeypatch):
+    """The bf16 cell of a new configuration, added by data alone, runs
+    correct at its own precision (the kept flows over the bf16-operand
+    reference's gap); the fp8 control in the program's place, or every
+    flow moved by 1 px, comes out not correct. No file of the copy is
+    edited."""
+    spec = _add_bf16_cell(tmp_path, monkeypatch)
+    if fault == "control":
+        real = eval_kind.Cell.judge
+        monkeypatch.setattr(
+            eval_kind.Cell, "judge",
+            lambda self, stand_in=None: real(self, {"rounding": "fp8"}))
+    elif fault == "altered":
+        flow_at = bezier.BezierCurves.flow_at
+        monkeypatch.setattr(bezier.BezierCurves, "flow_at",
+                            lambda self, times: flow_at(self, times) + 1.0)
+    result, run = run_small(BF16_CELL, spec=spec)
+    assert run.config["model"]["pallas_conv"]
+    assert result["correct"] == (fault is None), result["checks"]
+    assert set(result["checks"]) == {"flow_vs_bf16"}
+    assert set(result["metrics"]) == {"fields_per_s", "setup_s"}
+    for path in (ROOT / "benchmark").rglob("*"):
+        if path.is_file() and "__pycache__" not in path.parts:
+            copy = tmp_path / path.relative_to(ROOT)
+            assert copy.read_bytes() == path.read_bytes(), path
 
 
 def test_run_without_a_card_exits_nonzero():

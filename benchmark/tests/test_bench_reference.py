@@ -99,3 +99,20 @@ def test_flop_count_hand_counts():
     with FlopCounterMode(display=False) as fc:
         ref.correlation(a, b)
     assert fc.get_total_flops() == 2 * 5 * 2 * (60 * 80) * (30 * 40) * 256
+
+
+def test_lookup_in_row_blocks_equals_one_call(monkeypatch):
+    """A volume over SAMPLE_ELEMS is sampled in row blocks: the windows and
+    the volume's gradient are those of one call."""
+    from benchmark.reference import model
+
+    g = torch.Generator().manual_seed(0)
+    vol = torch.randn(3, 2, 6, 7, 12, 16, generator=g, requires_grad=True)
+    coords = torch.rand(3, 2, 6, 7, 2, generator=g) * 16 - 2
+    ref = Reference({"ev_radius": 4, "img_radius": 4}, {})
+    one = ref.lookup(vol, coords)
+    (g_one,) = torch.autograd.grad(one.sum(), vol)
+    monkeypatch.setattr(model, "SAMPLE_ELEMS", 1000)
+    blocks = ref.lookup(vol, coords)
+    (g_blocks,) = torch.autograd.grad(blocks.sum(), vol)
+    assert torch.equal(one, blocks) and torch.equal(g_one, g_blocks)

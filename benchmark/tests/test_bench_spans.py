@@ -2,10 +2,13 @@
 by hand, beside benchmark/trace.py's reduction of the same events, and on
 a traced slice of each traffic kind at the small size on the CPU."""
 
+import math
+from types import SimpleNamespace
+
 import pytest
 
-from benchmark import spans, trace
-from benchmark.tests.conftest import run_small
+from benchmark import harness, spans, trace
+from benchmark.tests.conftest import CELLS, SPEC, run_small
 
 MAIN, AUTOGRAD = 1, 2
 
@@ -123,3 +126,47 @@ def test_traced_slice_holds_the_spans(cell, per_request, monkeypatch):
                for v in seen["spans"].values())
     assert seen["checks"]["busy_s"] == 0
     assert seen["checks"]["early_starts"] == 0
+
+
+# the readers of the program's spans: (span, key) each reads
+SPAN_READERS = {"corr_ms": ("corr", "device_s"),
+                "forward_idle_ms": ("forward", "idle_s"),
+                "loss_idle_ms": ("loss", "idle_s"),
+                "backward_ms": ("backward", "device_s"),
+                "backward_idle_ms": ("backward", "idle_s")}
+
+
+@pytest.mark.parametrize("kind,per", [("eval", "units"), ("stream", "units"),
+                                      ("train", "requests")])
+@pytest.mark.parametrize("reader", sorted(SPAN_READERS))
+def test_span_readers_by_hand(reader, kind, per):
+    """Each reader gives 1e3 x its span's device or idle seconds of the
+    hand-made slice, per field (eval, stream) or per step (train), and
+    nothing where the slice has no such span."""
+    span, key = SPAN_READERS[reader]
+    reduced = spans.reduce(_events())
+    reduced[span] = reduced.get(span, reduced["forward"])
+    slice_ = {"units": 6, "requests": 2, "spans": reduced}
+    run = SimpleNamespace(slice=slice_, workload={"kind": kind})
+    mod = harness.reader(reader)
+    assert mod.read(run) == pytest.approx(
+        1e3 * reduced[span][key] / slice_[per])
+    del reduced[span]
+    assert mod.read(run) is None
+    run.slice = {}
+    assert mod.read(run) is None
+
+
+@pytest.mark.parametrize("cell", CELLS)
+def test_traced_run_reports_the_span_metrics(cell):
+    """A traced run of every listed cell at the small size reports each
+    span metric BENCHMARK.json lists for it, finite (0 device ms on the
+    CPU), and its slice holds the spans' reduction."""
+    result, run = run_small(cell, trace=True)
+    assert result["correct"], result["checks"]
+    names = [m["name"] for m in harness.reported(cell, True, SPEC)
+             if m["name"].split(".")[0] in SPAN_READERS]
+    assert names
+    for name in names:
+        assert math.isfinite(result["metrics"][name]["value"]), name
+    assert {"step", "forward", "corr"} <= set(run.slice["spans"])

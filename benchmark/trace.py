@@ -18,6 +18,8 @@ What ``profile`` leaves in ``run.slice``:
   range_calls    {layer: times the range was entered}
   kernels        {kernel name: [launches, device seconds]}
   breakdown      device_ops and idle_gaps (the result line's breakdown)
+  spans          the program's own ``bflow.*`` spans (spans.py:reduce):
+                 {name: calls, wall_s, device_s, idle_s}
 """
 
 from __future__ import annotations
@@ -79,6 +81,8 @@ def profile(run, cell) -> None:
     from torch.profiler import ProfilerActivity
     from torch.profiler import profile as torch_profile
 
+    from benchmark import spans
+
     n = run.workload["trace_requests"]
     cell.drain()
     activities = [ProfilerActivity.CPU]
@@ -101,7 +105,7 @@ def profile(run, cell) -> None:
     if isinstance(events, dict):
         events = events.get("traceEvents", [])
     run.slice = reduce(events, wall)
-    run.slice.update(units=units, requests=n)
+    run.slice.update(units=units, requests=n, spans=spans.reduce(events))
 
 
 def _union(intervals: List[tuple]) -> List[List[float]]:
