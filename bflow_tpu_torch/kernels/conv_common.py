@@ -28,6 +28,8 @@ from typing import Callable, Optional, Sequence
 import torch
 import torch.nn.functional as F
 
+from bflow_tpu_torch.utils.timers import span
+
 # x, w, bias, out, n, cp (padded channels), h, w, o, kh, kw, relu, and the
 # tile variant bm, bn, split; the stream comes last
 ARGTYPES = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 11 + [ctypes.c_void_p]
@@ -42,14 +44,18 @@ VARIANTS = {(64, 64): 6, (64, 96): 5, (64, 128): 4,
 SPLITS = (1, 2, 4)  # blocks of a cluster that share K
 
 # what the wrappers did since the last reset_counters(): copies of an
-# activation into the kernels' layout, and weights laid out for them
+# activation into the kernels' layout, weights laid out for them, and the
+# lookups of values derived from parameters (``cached``) that found their
+# value or made it anew
 layout_copies = 0
 weight_preps = 0
+cache_hits = 0
+cache_misses = 0
 
 
 def reset_counters() -> None:
-    global layout_copies, weight_preps
-    layout_copies = weight_preps = 0
+    global layout_copies, weight_preps, cache_hits, cache_misses
+    layout_copies = weight_preps = cache_hits = cache_misses = 0
 
 
 def conv_plain(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
@@ -242,14 +248,19 @@ def cached(tag, sources: Sequence[torch.Tensor], make: Callable):
     tensor objects holding the same values: an in-place update
     (optimizer.step, load_state_dict, ``param.add_``) bumps a tensor's
     ``_version`` and a reassigned ``.data`` moves its ``data_ptr``, and
-    either makes the value anew. Entries go when a source is collected."""
+    either makes the value anew. Entries go when a source is collected.
+    Making it opens the span ``bflow.conv_prep``."""
+    global cache_hits, cache_misses
     key = (tag, *map(id, sources))
     state = tuple((t.data_ptr(), t._version) for t in sources)
     entry = _derived.get(key)
     if (entry is not None and entry.state == state
             and all(r() is t for r, t in zip(entry.refs, sources))):
+        cache_hits += 1
         return entry.value
-    value = make()
+    cache_misses += 1
+    with span("conv_prep"):
+        value = make()
 
     def drop(_, key=key, table=_derived):  # bound now: it may run while
         table.pop(key, None)  # the interpreter shuts down, globals gone
@@ -293,16 +304,18 @@ def kernel_input(x: torch.Tensor, cp: int) -> torch.Tensor:
     """x as the kernels read it: dense channels-last with cp channels,
     16-byte aligned. A tensor that already is goes through untouched;
     anything else (NCHW-contiguous, sliced, a channel count that is not a
-    multiple of 8) is copied once, its channels zero-padded to cp."""
+    multiple of 8) is copied once, its channels zero-padded to cp, inside
+    the span ``bflow.conv_layout``."""
     global layout_copies
     c = x.shape[1]
     if (c == cp and x.is_contiguous(memory_format=torch.channels_last)
             and x.data_ptr() % 16 == 0):
         return x
     layout_copies += 1
-    if c == cp:
-        return x.clone(memory_format=torch.channels_last)
-    return F.pad(x.permute(0, 2, 3, 1), (0, cp - c)).permute(0, 3, 1, 2)
+    with span("conv_layout"):
+        if c == cp:
+            return x.clone(memory_format=torch.channels_last)
+        return F.pad(x.permute(0, 2, 3, 1), (0, cp - c)).permute(0, 3, 1, 2)
 
 
 @functools.lru_cache(maxsize=None)

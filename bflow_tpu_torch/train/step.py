@@ -42,6 +42,7 @@ from bflow_tpu_torch.utils.losses import (
     l1_multi_seq_loss_masked,
     l1_seq_loss_masked,
 )
+from bflow_tpu_torch.utils.host_memory import reuse_large_host_buffers
 from bflow_tpu_torch.utils.padder import InputPadder
 from bflow_tpu_torch.utils.precision import full_f32
 from bflow_tpu_torch.utils.timers import span
@@ -256,10 +257,15 @@ def make_eval_step(model: torch.nn.Module, task: TaskConfig,
     this rank's (the media of rank 0 alone). Runs in full f32
     (utils/precision.py), in the span ``bflow.step#<call>`` (its calls
     counted from 0; utils/timers.py), which holds the forward's spans and,
-    after them, the metrics and the prediction."""
+    after them, the metrics and the prediction. A model on the GPU sets the
+    process's malloc to reuse large host buffers, so that reading the
+    prediction back maps no pages anew each batch
+    (utils/host_memory.py)."""
     cfg = model.config
     if over_ranks is None:
         over_ranks = is_initialized()
+    if next(model.parameters()).is_cuda:
+        reuse_large_host_buffers()
     calls = itertools.count()
 
     def eval_step(batch):

@@ -22,6 +22,7 @@ from bflow_tpu_torch.train import (
     make_eval_step,
     make_train_step,
 )
+from bflow_tpu_torch.kernels import conv3x3, conv_common, stem_conv
 from bflow_tpu_torch.utils import timers
 from test_torch_common import one_torch_thread  # noqa: F401 (autouse)
 
@@ -45,8 +46,9 @@ EIGHT = {"step", *FORWARD, "loss", "backward", "optimizer"}
 EPS_US = 1e-3  # the trace's microsecond floats
 
 
-def _setup(family, remat=False):
-    cfg = bt.RaftSplineConfig(**CONFIGS[family], remat_updates=remat)
+def _setup(family, remat=False, kernel_path=False):
+    cfg = bt.RaftSplineConfig(**CONFIGS[family], remat_updates=remat,
+                              **(KERNEL_PATH if kernel_path else {}))
     model = bt.build_model(cfg, device="cpu", seed=0)
     rng = np.random.default_rng(1)
     n, h, w = 1, 32, 32
@@ -166,3 +168,94 @@ def test_timers_open_their_span(tmp_path, monkeypatch):
     spans = _spans(prof, tmp_path)
     assert [s[0] for s in spans] == ["host_block", "device_block", "step#7"]
     assert _inside(spans[1], spans[0])
+
+
+# -- the conv kernels' host side: bflow.conv_layout, bflow.conv_prep -----
+
+KERNEL_PATH = dict(compute_dtype="bfloat16", corr_precision="bfloat16",
+                   pallas_conv=True, pallas_stem=True)
+
+
+def _twin_launch(x, w, b, stride, relu=False):
+    """The conv kernels' launch with the device's work done by the plain
+    twin: the host side as ``conv_common.launch_cuda`` runs it (the
+    prepared weights, the input in the kernels' layout), then the plain
+    conv over exactly those buffers."""
+    prep = conv_common.prepared(w, b)
+    xk = conv_common.kernel_input(x, prep.cp)
+    return conv_common.conv_plain(xk, prep.w.permute(0, 3, 1, 2), prep.b,
+                                  stride, relu)
+
+
+@pytest.fixture
+def kernel_path(monkeypatch):
+    """The DSEC model in the bf16 fast mode with pallas_conv and
+    pallas_stem, its CPU convs sent through the kernels' host side
+    (_twin_launch); the counters reset. Returns (eval step, batch)."""
+    monkeypatch.setattr(conv3x3, "conv_plain", _twin_launch)
+    monkeypatch.setattr(stem_conv, "conv_plain", _twin_launch)
+    model, task, batch = _setup("dsec", kernel_path=True)
+    conv_common.reset_counters()
+    return make_eval_step(model, task), batch
+
+
+def _conv_spans(spans):
+    return [s for s in spans if s[0] in ("conv_layout", "conv_prep")]
+
+
+def test_conv_spans_open_inside_the_step_and_prep_only_once(kernel_path,
+                                                            tmp_path):
+    """Two profiled eval steps on the kernel path: every layout copy and
+    every cache miss is one closed span inside its step; the first step
+    prepares the weights, the second prepares nothing (no bflow.conv_prep,
+    no miss) and copies the same layouts again."""
+    step, batch = kernel_path
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        step(batch)
+        first = (conv_common.layout_copies, conv_common.cache_misses)
+        conv_common.reset_counters()
+        step(batch)
+        second = (conv_common.layout_copies, conv_common.cache_misses,
+                  conv_common.cache_hits)
+    spans = _spans(prof, tmp_path)
+    steps, counts = _by_step(spans)
+    assert [s[0] for s in steps] == ["step#0", "step#1"]
+    copies, misses = first
+    assert copies > 0 and misses > 0, first
+    assert counts[0]["conv_layout"] == copies
+    assert counts[0]["conv_prep"] == misses
+    assert second[:2] == (copies, 0) and second[2] > 0, second
+    assert counts[1]["conv_layout"] == copies
+    assert "conv_prep" not in counts[1]
+    for s in _conv_spans(spans):
+        assert s[2] >= s[1], s
+    # nothing else opened: the eval step's own spans and these two
+    assert {s[0].split("#")[0] for s in spans} == {
+        "step", *FORWARD, "conv_layout", "conv_prep"}
+
+
+def test_conv_spans_stay_closed_without_profiler(kernel_path, monkeypatch):
+    """No profiler: the kernel path copies and prepares (the counters
+    move) but makes no record_function."""
+    def refuse(*args, **kwargs):
+        raise AssertionError("record_function made with no profiler")
+
+    step, batch = kernel_path
+    monkeypatch.setattr(torch.profiler, "record_function", refuse)
+    step(batch)
+    assert conv_common.layout_copies > 0
+    assert conv_common.cache_misses > 0 and conv_common.weight_preps > 0
+
+
+def test_cache_counters_reset(kernel_path):
+    """cached's hit and miss counters count every lookup and go back to 0
+    with reset_counters(), with the layout and prep counters."""
+    step, batch = kernel_path
+    step(batch)
+    step(batch)
+    assert conv_common.cache_hits > 0 and conv_common.cache_misses > 0
+    assert conv_common.weight_preps <= conv_common.cache_misses
+    conv_common.reset_counters()
+    assert (conv_common.cache_hits, conv_common.cache_misses,
+            conv_common.layout_copies, conv_common.weight_preps) == (
+                0, 0, 0, 0)
