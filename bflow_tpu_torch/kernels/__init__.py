@@ -5,7 +5,7 @@ from __future__ import annotations
 
 from typing import Dict
 
-from bflow_tpu_torch.kernels import conv3x3, corr_lookup, stem_conv
+from bflow_tpu_torch.kernels import conv3x3, corr_lookup, norm, stem_conv
 
 # kernel name -> (wrapper module, the name of its launch counter there)
 KERNELS = {
@@ -13,6 +13,7 @@ KERNELS = {
     corr_lookup.BWD_NAME: (corr_lookup, "bwd_launches"),
     stem_conv.NAME: (stem_conv, "launches"),
     conv3x3.NAME: (conv3x3, "launches"),
+    norm.NAME: (norm, "launches"),
 }
 
 

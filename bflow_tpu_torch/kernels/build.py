@@ -28,7 +28,8 @@ BUILD_DIR = PACKAGE_DIR / "build"
 SOURCES = {"corr_lookup_fwd": "corr_lookup_fwd.cu",
            "corr_lookup_bwd": "corr_lookup_bwd.cu",
            "conv3x3": "conv3x3.cu",
-           "stem_conv": "stem_conv.cu"}
+           "stem_conv": "stem_conv.cu",
+           "norm": "norm.cu"}
 
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",

@@ -9,7 +9,11 @@ the reference checkpoint's (``conv1``, ``norm1``, ``layer2.0.downsample.0``
 
 Precision follows the JAX modules' ``dtype``: parameters stay f32; with a
 compute dtype, each conv casts its input, weight and bias to it at use.
-Norm statistics are taken in f32 and the result is cast back.
+Norm statistics are taken in f32 and the result is cast back. Each norm
+takes ``relu``, the ReLU that follows it in the JAX modules; in bf16
+inference the instance norm and the eval-mode BatchNorm, ReLU included, are
+one CUDA kernel (kernels/norm.py), chosen by what the input shows: a bf16
+CUDA tensor in a call that autograd would not record.
 
 The opt-in conv kernels follow the JAX package's dispatch
 (bflow_tpu/models/extractor.py:Conv3x3, StemConv): under ``pallas_stem``
@@ -32,6 +36,7 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from bflow_tpu_torch.kernels import conv3x3, stem_conv
+from bflow_tpu_torch.kernels import norm as knorm
 from bflow_tpu_torch.parallel.distributed import all_reduce_sum, is_initialized
 
 # std of a standard normal truncated to [-2, 2]: flax's variance_scaling
@@ -117,17 +122,20 @@ class Conv1x1(Conv2d):
 
 
 class GroupNorm(nn.GroupNorm):
-    """GroupNorm in f32, cast back. F.group_norm answers NCHW-contiguous;
-    a channels-last input (the conv kernels' output) gets its layout back
-    in the cast, so the next conv reads it in place."""
+    """GroupNorm in f32, cast back, then the ReLU where ``relu``.
+    F.group_norm answers NCHW-contiguous; a channels-last input (the conv
+    kernels' output) gets its layout back in the cast, so the next conv
+    reads it in place."""
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, relu: bool = False) -> torch.Tensor:
         y = F.group_norm(x.float(), self.num_groups, self.weight, self.bias,
                          self.eps)
         if not x.is_contiguous() and x.is_contiguous(
                 memory_format=torch.channels_last):
-            return y.to(x.dtype, memory_format=torch.channels_last)
-        return y.to(x.dtype)
+            y = y.to(x.dtype, memory_format=torch.channels_last)
+        else:
+            y = y.to(x.dtype)
+        return F.relu(y) if relu else y
 
 
 class BatchNorm(nn.BatchNorm2d):
@@ -144,24 +152,31 @@ class BatchNorm(nn.BatchNorm2d):
     slice, one all-reduce of the packed sums and count gives flax's
     mean = E[x] and var = max(0, E[x^2] - E[x]^2), and the gradient
     reaches the other ranks' samples through the all-reduce's backward.
-    (nn.SyncBatchNorm would also move toward the unbiased variance.)"""
+    (nn.SyncBatchNorm would also move toward the unbiased variance.)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        xf = x.float()
+    ``relu`` applies the ReLU after the norm. Eval mode in bf16 inference
+    is the norm kernel's (kernels/norm.py: knorm.engages)."""
+
+    def forward(self, x: torch.Tensor, relu: bool = False) -> torch.Tensor:
         if not self.training:
-            return F.batch_norm(xf, self.running_mean, self.running_var,
-                                self.weight, self.bias, False, 0.0,
-                                self.eps).to(x.dtype)
+            norm = (knorm.batch_norm
+                    if knorm.engages(x, self.weight, self.bias)
+                    else knorm.batch_norm_plain)
+            return norm(x, self.running_mean, self.running_var, self.weight,
+                        self.bias, self.eps, relu)
+        xf = x.float()
         if is_initialized():
-            return self._global_batch(xf).to(x.dtype)
-        with torch.no_grad():
-            var, mean = torch.var_mean(xf, dim=(0, 2, 3), correction=0)
-            m = self.momentum
-            self.running_mean.mul_(1.0 - m).add_(m * mean)
-            self.running_var.mul_(1.0 - m).add_(m * var)
-            self.num_batches_tracked.add_(1)
-        return F.batch_norm(xf, None, None, self.weight, self.bias, True,
-                            0.0, self.eps).to(x.dtype)
+            y = self._global_batch(xf).to(x.dtype)
+        else:
+            with torch.no_grad():
+                var, mean = torch.var_mean(xf, dim=(0, 2, 3), correction=0)
+                m = self.momentum
+                self.running_mean.mul_(1.0 - m).add_(m * mean)
+                self.running_var.mul_(1.0 - m).add_(m * var)
+                self.num_batches_tracked.add_(1)
+            y = F.batch_norm(xf, None, None, self.weight, self.bias, True,
+                             0.0, self.eps).to(x.dtype)
+        return F.relu(y) if relu else y
 
     def _global_batch(self, xf: torch.Tensor) -> torch.Tensor:
         c = xf.shape[1]
@@ -182,20 +197,30 @@ class BatchNorm(nn.BatchNorm2d):
 
 
 class InstanceNorm(nn.Module):
-    """InstanceNorm2d with torch defaults (no affine, no running stats).
+    """InstanceNorm2d with torch defaults (no affine, no running stats),
+    then the ReLU where ``relu``.
 
-    f32 inputs take the two-pass mean/variance; bf16 inputs take the JAX
-    fast mode's single pass, var = max(E[x^2] - E[x]^2, 0) in f32."""
+    f32 inputs take the two-pass mean/variance; other inputs take the JAX
+    fast mode's single pass, var = max(E[x^2] - E[x]^2, 0) in f32: the norm
+    kernel where knorm.engages (bf16 inference on the card), else its plain
+    version."""
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        xf = x.float()
-        m1 = xf.mean(dim=(2, 3), keepdim=True)
-        if x.dtype == torch.float32:
-            var = (xf - m1).square().mean(dim=(2, 3), keepdim=True)
-        else:
-            m2 = xf.square().mean(dim=(2, 3), keepdim=True)
-            var = torch.clamp(m2 - m1.square(), min=0.0)
-        return ((xf - m1) * torch.rsqrt(var + 1e-5)).to(x.dtype)
+    def forward(self, x: torch.Tensor, relu: bool = False) -> torch.Tensor:
+        if x.dtype != torch.float32:
+            norm = (knorm.instance_norm if knorm.engages(x)
+                    else knorm.instance_norm_plain)
+            return norm(x, relu)
+        m1 = x.mean(dim=(2, 3), keepdim=True)
+        var = (x - m1).square().mean(dim=(2, 3), keepdim=True)
+        y = (x - m1) * torch.rsqrt(var + 1e-5)
+        return F.relu(y) if relu else y
+
+
+class NoNorm(nn.Identity):
+    """No norm: x, then the ReLU where ``relu``."""
+
+    def forward(self, x: torch.Tensor, relu: bool = False) -> torch.Tensor:
+        return F.relu(x) if relu else x
 
 
 def make_norm(kind: str, channels: int, num_groups: int) -> nn.Module:
@@ -206,7 +231,7 @@ def make_norm(kind: str, channels: int, num_groups: int) -> nn.Module:
     if kind == "instance":
         return InstanceNorm()
     if kind == "none":
-        return nn.Identity()
+        return NoNorm()
     raise NotImplementedError(kind)
 
 
@@ -233,8 +258,8 @@ class ResidualBlock(nn.Module):
             )
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        y = F.relu(self.norm1(self.conv1(x)))
-        y = F.relu(self.norm2(self.conv2(y)))
+        y = self.norm1(self.conv1(x), relu=True)
+        y = self.norm2(self.conv2(y), relu=True)
         if self.downsample is not None:
             x = self.downsample(x)
         return F.relu(x + y)
@@ -272,7 +297,7 @@ class BasicEncoder(nn.Module):
         if is_list:
             n, parts = x[0].shape[0], len(x)
             x = torch.cat(list(x), dim=0)
-        x = F.relu(self.norm1(self.conv1(x)))
+        x = self.norm1(self.conv1(x), relu=True)
         x = self.layer3(self.layer2(self.layer1(x)))
         x = self.conv2(x)
         if is_list:

@@ -25,7 +25,13 @@ toolkit (nvcc). Phases, each printing JSON lines:
                   at every flagship shape their gates pass, on
                   channels-last and NCHW-contiguous inputs, with the
                   wrapper's layout copies and prepared weights counted and
-                  gradients through their autograd.Functions included
+                  gradients through their autograd.Functions included;
+                  (3d) the norm kernel (instance norm and eval BatchNorm,
+                  ReLU fused) at the bf16 DSEC cell's encoder shapes at
+                  B=16, channels-last, timed beside its byte bound, its
+                  plain version and F.instance_norm / F.batch_norm, and
+                  on NCHW inputs; within one bf16 ulp, bit-repeatable,
+                  the input's layout kept
   4. forward      the flagship RAFT-Spline inference forward (480x640, B=1,
                   bf16, 12 iterations) through build_model(); launch counts
                   reset before and read after (one all-level lookup launch
@@ -106,8 +112,8 @@ toolkit (nvcc). Phases, each printing JSON lines:
                   width (bflow_tpu_torch.streaming: 300,000 events padded
                   to 2^19, 256x320, 5 + 5 bins, 6 iterations, bf16, flows
                   at 4 query times): the device grid against the host
-                  VoxelGrid (1e-4), the flows against the plain twins
-                  (5e-2), then streaming.main (a first window and 8
+                  VoxelGrid (1e-4), the flows (Bezier head damped)
+                  against the plain twins (5e-2), then streaming.main (a first window and 8
                   timed ones: ms per window, windows/s, the voxelizer /
                   forward split) with its lookup launches held to 6 per
                   window, its peak memory and a profile of one window;
@@ -196,6 +202,7 @@ from bflow_tpu_torch.kernels import build as kbuild
 from bflow_tpu_torch.kernels import conv3x3 as kconv
 from bflow_tpu_torch.kernels import conv_common
 from bflow_tpu_torch.kernels import corr_lookup as klookup
+from bflow_tpu_torch.kernels import norm as knorm
 from bflow_tpu_torch.kernels import stem_conv as kstem
 from bflow_tpu_torch.models.corr import KERNEL_METHODS, quantizes
 
@@ -1047,12 +1054,27 @@ def flagship_convs(cfg, n=1, h=H, w=W, iters=ITERS):
     return list(rows.values())
 
 
-def expected_launches(cfg, n=1, h=H, w=W, iters=ITERS):
-    """Launches of each kernel in one forward, from the copied gates."""
+def norm_launches(cfg, train: bool = False) -> int:
+    """Norm kernel launches in one forward: each bf16 encoder's 15 instance
+    norms or eval-mode BatchNorms (the stem's, four a stage and the
+    downsample's in stages 2 and 3), none in f32 and none in a training
+    forward (autograd records the norms; train-mode BatchNorm takes the
+    batch's statistics)."""
+    if train or cfg.compute_dtype != "bfloat16":
+        return 0
+    kinds = ([cfg.feature_norm] * (cfg.use_events + cfg.use_images)
+             + [cfg.context_norm])
+    return 15 * sum(k in ("instance", "batch") for k in kinds)
+
+
+def expected_launches(cfg, n=1, h=H, w=W, iters=ITERS, train=False):
+    """Launches of each kernel in one forward (``train``: a training
+    forward, autograd recording), from the copied gates."""
     want = dict.fromkeys(kernels.KERNELS, 0)
     for row in flagship_convs(cfg, n, h, w, iters):
         if row["kernel"]:
             want[row["kernel"]] += row["per_forward"]
+    want[knorm.NAME] = norm_launches(cfg, train)
     # a level for the all-level kernel (pallas_q8's int8 levels too): one
     # launch per iteration
     table = cfg.lookup_method in KERNEL_METHODS and any(
@@ -1209,12 +1231,16 @@ class plain_twins:
     def __enter__(self):
         self._saved = [(kconv, "_fwd_cuda", kconv._fwd_cuda),
                        (kstem, "_fwd_cuda", kstem._fwd_cuda),
+                       (knorm, "_instance_cuda", knorm._instance_cuda),
+                       (knorm, "_batch_cuda", knorm._batch_cuda),
                        (klookup, "lookup_pyramid_cuda",
                         klookup.lookup_pyramid_cuda),
                        (klookup, "lookup_pyramid_bwd_cuda",
                         klookup.lookup_pyramid_bwd_cuda)]
         kconv._fwd_cuda = conv_common.conv_plain
         kstem._fwd_cuda = conv_common.conv_plain
+        knorm._instance_cuda = knorm.instance_norm_plain
+        knorm._batch_cuda = knorm.batch_norm_plain
         klookup.lookup_pyramid_cuda = klookup.corr_lookup_pyramid_plain
         klookup.lookup_pyramid_bwd_cuda = (
             klookup.corr_lookup_pyramid_bwd_plain)
@@ -1289,6 +1315,184 @@ def conv_summary(name, replaces, recs, counts, eval_counts):
             "ms_nchw_input": per_forward("ms_nchw_input"),
             "library_nchw_ms": per_forward("library_nchw_ms"),
             "per": "flagship forward", "shapes": len(recs)}
+
+
+# ---------------------------------------------------------------------------
+# phase 3d: the norm kernel against its plain version
+
+# the encoders' norm shapes (C, H, W) at stages 1-3 of a 480x640 input
+NORM_STAGES = [(64, 240, 320), (96, 120, 160), (128, 60, 80)]
+# the bf16 DSEC cell's batch of 16: the encoders' N and norm kinds
+NORM_ENCODERS = [("fnet_ev", 80, "instance"), ("fnet_img", 32, "instance"),
+                 ("cnet", 16, "batch")]
+# the kernel against its plain version: bf16 outputs at most one ulp apart
+# on at most this share of the elements (the two sum in another order and
+# round 1/sqrt differently, which moves an f32 result by ~1e-7 of itself),
+# and a difference below NORM_ATOL is the f32 rounding of an output near 0,
+# where one ulp of bf16 is smaller than that rounding
+NORM_ULP_SHARE = 1e-3
+NORM_ATOL = 1e-5
+
+
+def bf16_ulps(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Elementwise distance of two bf16 tensors in units in the last
+    place (0 between -0 and +0)."""
+    def ordered(t):
+        i = t.contiguous().view(torch.int16).to(torch.int32)
+        return torch.where(i < 0, -(i & 0x7FFF), i)
+
+    return (ordered(a) - ordered(b)).abs()
+
+
+def norm_inputs(kind, n, c, h, w, channels_last, seed, device="cuda"):
+    """x (N, C, H, W) bf16 ~ 2 N(0, 1) + 0.5 in the asked layout and, for a
+    BatchNorm, running mean and variance, weight and bias (f32)."""
+    gen = torch.Generator(device=device).manual_seed(seed)
+    x = (2.0 * torch.randn(n, c, h, w, generator=gen, device=device)
+         + 0.5).bfloat16()
+    if channels_last:
+        x = x.contiguous(memory_format=torch.channels_last)
+    if kind == "instance":
+        return x, ()
+
+    def draw():
+        return torch.randn(c, generator=gen, device=device)
+
+    return x, (0.2 * draw(), 0.5 + draw().abs(), 1.0 + 0.2 * draw(),
+               0.2 * draw())
+
+
+def norm_call(kind, x, stats, relu, plain=False):
+    """The kernel (or its plain version) on x as a function of no
+    arguments."""
+    if kind == "instance":
+        fn = knorm.instance_norm_plain if plain else knorm.instance_norm
+        return lambda: fn(x, relu)
+    fn = knorm.batch_norm_plain if plain else knorm.batch_norm
+    return lambda: fn(x, *stats, 1e-5, relu)
+
+
+def norm_bytes(kind, x) -> dict:
+    """The norm's bytes: the input read once and the output written once
+    (the roofline's count), and what a two-pass instance norm reads from
+    device memory when its second read misses the L2."""
+    once = 4 * x.numel()
+    return {"bytes": once,
+            "bytes_two_pass": once + (2 * x.numel() if kind == "instance"
+                                      else 0)}
+
+
+def check_norm(kind, n, c, h, w, channels_last, seed, relu=True,
+               timing=False):
+    """The norm kernel against its plain version on the card: every bf16
+    output within one ulp (or NORM_ATOL) of the plain one, at most
+    NORM_ULP_SHARE of them one ulp off; a second launch bit-equal; the
+    output in the input's layout; one launch counted a call. With timing:
+    the kernel's ms (L2 flushed before each launch) beside its byte bound,
+    the plain version's ms (the eager f32 chain the model ran before the
+    kernel) and the library's: F.instance_norm or F.batch_norm in bf16,
+    then F.relu, which the port never calls."""
+    x, stats = norm_inputs(kind, n, c, h, w, channels_last, seed)
+    before = knorm.launches
+    call = norm_call(kind, x, stats, relu)
+    got = call()
+    again = call()
+    torch.cuda.synchronize()
+    launches = knorm.launches - before
+    want = norm_call(kind, x, stats, relu, plain=True)()
+    ulps = bf16_ulps(got, want)
+    near = (got.float() - want.float()).abs() <= NORM_ATOL
+    layout = (torch.channels_last if channels_last
+              else torch.contiguous_format)
+    rec = {"kind": kind, "shape": [n, c, h, w],
+           "layout": "channels_last" if channels_last else "nchw",
+           "relu": relu, "max_ulps": int(ulps.max().item()),
+           "max_ulps_beyond_atol": int(ulps.masked_fill(near, 0).max().item()),
+           "share_off_by_one_ulp": (ulps == 1).float().mean().item(),
+           "max_abs_err": (got.float() - want.float()).abs().max().item(),
+           "bitwise_repeatable": torch.equal(got, again),
+           "layout_kept": got.is_contiguous(memory_format=layout),
+           "launches_per_call": launches / 2,
+           "chunks": knorm.chunks(n, c, h * w, channels_last),
+           "ulp_share_bound": NORM_ULP_SHARE, "atol": NORM_ATOL}
+    rec["ok"] = (rec["max_ulps_beyond_atol"] <= 1
+                 and rec["share_off_by_one_ulp"] <= NORM_ULP_SHARE
+                 and rec["bitwise_repeatable"] and rec["layout_kept"]
+                 and launches == 2)
+    if not timing:
+        return rec
+    del got, again, want, ulps, near
+    nbytes = norm_bytes(kind, x)
+    if kind == "instance":
+        def library():
+            return F.relu(F.instance_norm(x, eps=1e-5))
+    else:
+        def library():
+            return F.relu(F.batch_norm(x, *stats, False, 0.0, 1e-5))
+    rec.update(
+        nbytes,
+        ms=time_ms(call),
+        plain_ms=time_ms(norm_call(kind, x, stats, relu, plain=True)),
+        library_ms=time_ms(library),
+        bound_ms=nbytes["bytes"] / HBM_BYTES_PER_S * 1e3,
+        bound_two_pass_ms=nbytes["bytes_two_pass"] / HBM_BYTES_PER_S * 1e3,
+        bound_by="bytes")
+    rec["roofline_share"] = rec["bound_ms"] / rec["ms"]
+    rec["two_pass_roofline_share"] = rec["bound_two_pass_ms"] / rec["ms"]
+    return rec
+
+
+def norm_phase(seed: int, timing: bool = True):
+    """Phase 3d: the norm kernel at each encoder shape of the bf16 DSEC
+    cell (B=16: fnet_ev's 80 samples, fnet_img's 32, cnet's 16 through
+    BatchNorm), channels-last as the conv kernels hand it over, ReLU fused,
+    timed; then NCHW (the 1x1 downsample's F.conv2d may answer in it) at
+    each stage with N=2, ReLU off. Returns the records and the kernel's
+    device ms a request (each stage's time x 5 norms, per encoder)."""
+    recs, request_ms = [], 0.0
+    for i, (enc, n, kind) in enumerate(NORM_ENCODERS):
+        for j, (c, h, w) in enumerate(NORM_STAGES):
+            rec = check_norm(kind, n, c, h, w, True, seed + 3 * i + j,
+                             timing=timing)
+            rec["encoder"] = enc
+            emit("kernel", name=knorm.NAME, **rec)
+            check(rec["ok"], f"norm kernel disagrees: {rec}")
+            recs.append(rec)
+            if timing:
+                request_ms += 5 * rec["ms"]
+    for j, (c, h, w) in enumerate(NORM_STAGES):
+        for kind in ("instance", "batch"):
+            rec = check_norm(kind, 2, c, h, w, False, seed + 20 + j,
+                             relu=False)
+            emit("kernel", name=knorm.NAME, **rec)
+            check(rec["ok"], f"norm kernel disagrees (NCHW): {rec}")
+            recs.append(rec)
+    return recs, request_ms
+
+
+def norm_summary(recs, request_ms, counts, eval_counts):
+    """The norm kernel's entry of the kernels line: the stage-1 instance
+    norm of fnet_ev (N=80, 64x240x320, channels-last) and the request's
+    total at B=16; launches in phase 4's forwards and phase 7d's val run."""
+    top = next(r for r in recs if r.get("encoder") == "fnet_ev"
+               and r["shape"][1] == NORM_STAGES[0][0])
+    return {"name": knorm.NAME, "route": "cuda",
+            "source": "bflow_tpu_torch/csrc/norm.cu",
+            "replaces": "none: XLA fuses the JAX package's norm "
+                        "(bflow_tpu/models/extractor.py:Norm)",
+            "launches": counts[knorm.NAME],
+            "launches_eval": eval_counts[knorm.NAME],
+            "max_ulps_beyond_atol": max(r["max_ulps_beyond_atol"]
+                                        for r in recs),
+            **{k: top[k] for k in ("ms", "plain_ms", "library_ms",
+                                   "bound_ms", "bound_two_pass_ms",
+                                   "roofline_share",
+                                   "two_pass_roofline_share")},
+            "bound_by": "bytes",
+            "per": "fnet_ev's stage-1 norm, N=80 at 64x240x320, "
+                   "channels-last, ReLU fused",
+            "request_ms": request_ms,
+            "request": "the 45 norms of a B=16 bf16 DSEC forward"}
 
 
 # ---------------------------------------------------------------------------
@@ -2393,7 +2597,8 @@ RELEASED_SIZE = {2: (480, 640), 10: (384, 512)}
 def stream_window(seed: int, profile_dir=None) -> dict:
     """11a: the streaming window at full width. One window's events
     through the device voxelizer against the host rasterizer (1e-4) and
-    through the forward against its plain twins (5e-2); then the entry
+    through the forward (Bezier head damped) against its plain twins
+    (5e-2); then the entry
     point (streaming.main: a first window and STREAM_WINDOWS timed ones),
     its launches counted, its peak memory; a profile of one window."""
     from bflow_tpu_torch import streaming as st
@@ -2411,7 +2616,12 @@ def stream_window(seed: int, profile_dir=None) -> dict:
                 - torch.from_numpy(host)).abs().max().item()
     check(grid_err <= 1e-4,
           f"11a: device grid vs host VoxelGrid {grid_err} > 1e-4")
+    # the Bezier head damped, as in every other comparison with the plain
+    # twins: undamped, the random-init recurrence amplifies one bf16 ulp
+    # anywhere (the norm kernel's, or the input's) to ~0.3 of the flows
+    # within 6 iterations
     model, pipeline = st.make_pipeline(device="cuda", seed=seed)
+    damp_head(model)
     kern = st.grid_flows(model, grid, st.QUERY_TIMES)
     with plain_twins():
         twin = st.grid_flows(model, grid, st.QUERY_TIMES)
@@ -2467,10 +2677,12 @@ def released_family(workdir, idx: int, name: str, kw: dict,
     path = workdir / f"{name}.ckpt"
     torch.save({"state_dict": pr.random_init_state_dict(cfg, idx)}, path)
     size = RELEASED_SIZE[cfg.bezier_degree]
-    modes = ("auto", "auto", "pallas_q8")  # f32, bf16, q8
+    modes = (("auto", "float32"), ("auto", "bfloat16"),
+             ("pallas_q8", "bfloat16"))  # f32, bf16, q8
     want = {k: sum(expected_launches(
-        dataclasses.replace(cfg, lookup_method=m), 1, *size, ITERS)[k]
-        for m in modes) for k in kernels.KERNELS}
+        dataclasses.replace(cfg, lookup_method=m, compute_dtype=p,
+                            corr_precision=p), 1, *size, ITERS)[k]
+        for m, p in modes) for k in kernels.KERNELS}
     torch.backends.cudnn.allow_tf32 = True  # PyTorch's default
     torch.backends.cuda.matmul.allow_tf32 = True
     t0 = time.perf_counter()
@@ -2926,6 +3138,8 @@ def main() -> int:
         emit("kernel", name=row["kernel"], **rec)
         check(rec["ok"], f"{row['kernel']} disagrees: {rec}")
         per_conv[row["kernel"]].append(rec)
+    # 3d. the norm kernel at the bf16 DSEC cell's encoder shapes
+    norm_recs, norm_request_ms = norm_phase(args.seed)
 
     # 4. the flagship forward through the kernel
     cfg = bt.flagship_config()
@@ -3162,7 +3376,7 @@ def main() -> int:
     conv_counts = kernels.launch_counts()
     conv_loss = metrics["train/l1_seq_loss"][0].item()
     want_conv = expected_launches(conv_cfg, TRAIN_B, TRAIN_H, TRAIN_W,
-                                  conv_cfg.iters_train)
+                                  conv_cfg.iters_train, train=True)
     want_conv[klookup.BWD_NAME] = want_conv[klookup.NAME]
     finite = grads_finite(model)
     del model, state, step
@@ -3340,7 +3554,8 @@ def main() -> int:
     }, conv_summary(kstem.NAME, "bflow_tpu/ops/pallas/stem_conv.py:114",
                     per_conv[kstem.NAME], opt_counts, eval_opt_counts),
         conv_summary(kconv.NAME, "bflow_tpu/ops/pallas/conv3x3.py:69",
-                     per_conv[kconv.NAME], opt_counts, eval_opt_counts)]
+                     per_conv[kconv.NAME], opt_counts, eval_opt_counts),
+        norm_summary(norm_recs, norm_request_ms, counts, eval_counts)]
     print(json.dumps({"kernels": summary}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

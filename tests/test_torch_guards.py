@@ -418,7 +418,9 @@ def test_model_launch_counts_on_gpu(cuda_device):
     """One all-level lookup launch per iteration: a flagship-config
     forward (default and opt-in modes) and a train-mode forward and
     backward, at 64x96 and 2 iterations, launch what expected_launches
-    derives."""
+    derives. The inference forwards (test_mode: under torch.no_grad) take
+    the norm kernel at each of their 45 norms, the training forward at
+    none."""
     import dataclasses
 
     import chip_smoke
@@ -447,6 +449,9 @@ def test_model_launch_counts_on_gpu(cuda_device):
     torch.cuda.synchronize()
     counts = kernels.launch_counts()
     assert counts[corr_lookup.NAME] == counts[corr_lookup.BWD_NAME] == 2
+    assert counts == chip_smoke.expected_launches(
+        model.config, 1, 64, 96, 2, train=True) | {
+            corr_lookup.BWD_NAME: 2}
 
 
 @pytest.mark.cuda
@@ -691,6 +696,9 @@ def test_encoder_keeps_channels_last_between_convs_on_gpu(cuda_device, norm):
     torch.cuda.synchronize()
     counts = kernels.launch_counts()
     assert counts["stem_conv"] == 3 and counts["conv3x3"] == 10, counts
+    # the instance norms and eval BatchNorms go through the norm kernel,
+    # which keeps the layout; GroupNorm and no norm do not reach it
+    assert counts["norm"] == (15 if norm in ("instance", "batch") else 0)
     assert conv_common.layout_copies == 1
     not_cl = sorted(k for k, v in seen.items() if not v and k != "conv1")
     assert not not_cl, not_cl
