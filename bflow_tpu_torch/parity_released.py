@@ -24,8 +24,9 @@ README lists the four released files), this:
      (bflow_tpu_torch.val) on the real dataset with the family's
      experiment overlay and prints its metrics.
 
-On the GPU the tool turns TF32 off for matmuls and cuDNN, so that its f32
-mode is full f32.
+Its f32 mode and the oracle's forward run at full f32 on the GPU
+(utils/precision.py:full_f32: TF32 off inside each call, the caller's
+flags given back after it).
 
 --all builds a random-init stand-in for each released family: the port's
 seeded model exported in the reference layout (random_init_state_dict),
@@ -43,6 +44,7 @@ import numpy as np
 import torch
 
 from bflow_tpu_torch.models import RaftSplineConfig
+from bflow_tpu_torch.utils.precision import full_f32
 
 
 def infer_config(sd: dict):
@@ -237,8 +239,9 @@ def run_family(name: str, sd: dict, cfg, iters: int, times, size,
               f"unavailable); the port's f32 flow is finite: "
               f"{all(np.isfinite(f).all() for f in ours.values())}")
         return None
-    want = torch_forward_flow(cfg, sd, voxel, images, iters=iters,
-                              times=times)
+    with full_f32():
+        want = torch_forward_flow(cfg, sd, voxel, images, iters=iters,
+                                  times=times)
     return report(name, ours, want)
 
 
@@ -322,11 +325,7 @@ def main(argv=None, device="cuda") -> Dict[str, Any]:
     ap.add_argument("--q8-also", action="store_true")
     ap.add_argument("--device", default=device)
     args = ap.parse_args(argv)
-    if resolve_device(args.device).type == "cuda":
-        # f32 parity mode: full-f32 matmuls and convolutions (PyTorch lets
-        # cuDNN run f32 convolutions in TF32 by default)
-        torch.backends.cuda.matmul.allow_tf32 = False
-        torch.backends.cudnn.allow_tf32 = False
+    resolve_device(args.device)  # a CUDA device without CUDA raises here
 
     if args.all:
         return {"rows": run_all(args)}
@@ -358,9 +357,10 @@ def main(argv=None, device="cuda") -> Dict[str, Any]:
     )
 
     if not args.skip_torch and reference_available():
-        want = torch_forward_flow(
-            cfg, sd, voxel, images, iters=args.iters, times=times
-        )
+        with full_f32():
+            want = torch_forward_flow(
+                cfg, sd, voxel, images, iters=args.iters, times=times
+            )
         print(f"torch-oracle side-by-side ({args.iters} iters, f32):")
         out["rel"]["f32_vs_torch"] = report("ours-f32 vs torch", ours_f32,
                                             want)

@@ -60,8 +60,6 @@ Where it differs from the JAX package's loop:
   * `debugging.profiler=jax` (the value keeps its name: the config tree is
     the JAX package's) writes a torch.profiler chrome trace of rank 0's
     run into <run_dir>/profile.
-  * TF32 is off for matmuls and cuDNN on every rank: the JAX package pins
-    f32 matmuls to HIGHEST.
 """
 
 from __future__ import annotations
@@ -199,9 +197,6 @@ def _loop(overrides, dev) -> Dict[str, Any]:
     rank, world = distributed.process_index(), distributed.process_count()
     primary = distributed.is_primary_host()
     say = print if primary else (lambda *a, **k: None)
-    if dev.type == "cuda":
-        torch.backends.cuda.matmul.allow_tf32 = False
-        torch.backends.cudnn.allow_tf32 = False
 
     train_cfg = config["training"]
     dataset_name = config["dataset"]["name"]

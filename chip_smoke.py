@@ -1,9 +1,12 @@
 #!/usr/bin/env python3
-"""Smoke run of the PyTorch port (bflow_tpu_torch) on one NVIDIA GPU.
+"""Smoke run of the PyTorch port (bflow_tpu_torch) on one NVIDIA GPU: its
+checks on the card, and the times of its hand-written kernels. The rates
+the benchmark's cells measure (fields/s, samples/s) and the device's idle
+share come from benchmark/run.py, not from here.
 
-    python3 chip_smoke.py [--profile DIR] [--seed N] [--conv-sweep]
-                          [--lookup-probe] [--eval-only] [--train-only]
-                          [--dist-only] [--stream-only]
+    python3 chip_smoke.py [--seed N] [--conv-sweep] [--lookup-probe]
+                          [--eval-only] [--train-only] [--dist-only]
+                          [--stream-only]
 
 Run from the repository root, on a machine with a CUDA GPU and the CUDA
 toolkit (nvcc). Phases, each printing JSON lines:
@@ -33,26 +36,24 @@ toolkit (nvcc). Phases, each printing JSON lines:
                   on NCHW inputs; within one bf16 ulp, bit-repeatable,
                   the input's layout kept
   4. forward      the flagship RAFT-Spline inference forward (480x640, B=1,
-                  bf16, 12 iterations) through build_model(); launch counts
-                  reset before and read after (one all-level lookup launch
-                  per iteration); ms/forward, fields/s, memory; a profile
-                  of one forward (device calls, direct_copy);
+                  bf16, 12 iterations) through build_model(), twice; launch
+                  counts reset before and read after (one all-level lookup
+                  launch per iteration); memory, finite flows;
                   (4b, opt_forward) the same with pallas_q8, pallas_stem and
                   pallas_conv, launches held to the count the copied gates
                   give (one all-level lookup launch per iteration, int8
-                  levels included), layout copies to one per conv whose
-                  channel count is not a multiple of 8; (opt_vs_default)
-                  the two paths' walls again, 12 forwards each taken in
-                  turns
+                  levels included), in the second forward layout copies to
+                  one per conv whose channel count is not a multiple of 8
+                  and no weight prepared again
   5. parity       kernel path vs plain path on the same seeded weights;
                   (5b, opt_parity) the opt-in path vs its plain twins, and
                   vs the default path (recorded)
   6. train        the DSEC training step (f32, 12 iterations, B=3 at
-                  288x384, AdamW + OneCycle) through make_train_step: 2
-                  warm-up + 5 timed steps on one batch, launches per step
-                  (12 lookup forward, 12 backward), loss per step, memory,
-                  a profile of one step (one dVol zeroing per level, no
-                  dVol sum); then one bf16 flagship step, and
+                  288x384, AdamW + OneCycle) through make_train_step: 7
+                  steps on one batch (the loss must fall), launches per step
+                  (12 lookup forward, 12 backward), loss per step, memory;
+                  one more step under torch.profiler (one dVol zeroing per
+                  level, no dVol sum); then one bf16 flagship step, and
                   (6c, train_conv) one with the stem and conv kernels, its
                   gradients vs the plain twins'
      train_parity kernel path vs gather path, loss and gradients of a step
@@ -70,7 +71,7 @@ toolkit (nvcc). Phases, each printing JSON lines:
                   them (equal metrics), the composed config ==
                   flagship_config(), 12 lookup launches per forward, the
                   CSV's val/* within 5e-2 of make_eval_step on the plain
-                  twins, fields/s and the loader-wait share; (7d,
+                  twins, the loader-wait share; (7d,
                   eval_val_opt_in) the opt-in modes in one batch, launches
                   12 / 9 / 138 per forward; (7e, eval_predict)
                   predict_dsec on the test recording: 4 PNGs within 1/128
@@ -89,8 +90,10 @@ toolkit (nvcc). Phases, each printing JSON lines:
                   in the same run directory continues at step 4 to step
                   6; (train_cli_plain) step 1 on the plain twins, loss
                   within 1e-5; the two lookups at these shapes, degree-10
-                  flow_at against de Casteljau, a profile of one step
-                  (phase 9 runs after 7; the kernels line is printed last)
+                  flow_at against de Casteljau, one more step under
+                  torch.profiler (12 + 12 lookup launches, one dVol zeroing
+                  per level, no dVol sum) (phase 9 runs after 7; the
+                  kernels line is printed last)
  10. dist         data-parallel training (bflow_tpu_torch.parallel):
                   (10a, dist_world1) phase 6's step over an NCCL group of
                   one rank (DDP, the global BatchNorm, the loss's global
@@ -113,16 +116,16 @@ toolkit (nvcc). Phases, each printing JSON lines:
                   to 2^19, 256x320, 5 + 5 bins, 6 iterations, bf16, flows
                   at 4 query times): the device grid against the host
                   VoxelGrid (1e-4), the flows (Bezier head damped)
-                  against the plain twins (5e-2), then streaming.main (a first window and 8
-                  timed ones: ms per window, windows/s, the voxelizer /
-                  forward split) with its lookup launches held to 6 per
-                  window, its peak memory and a profile of one window;
+                  against the plain twins (5e-2), then streaming.main (a
+                  first window and 8 more) with its lookup launches held
+                  to 6 per window and its peak memory;
                   (11b, released_family) each of the four released
                   families (bflow_tpu_torch.parity_released): its
                   random-init export saved as a .ckpt, read back and its
                   architecture inferred, then the tool at the native size
                   (DSEC 480x640, MultiFlow 384x512; B=1, 12 iterations,
-                  f32, --bf16-also --q8-also), 12 lookup launches per
+                  f32, --bf16-also --q8-also) with both TF32 flags on in
+                  the caller and on again after it, 12 lookup launches per
                   forward, the f32 flows against the plain twins (1e-3);
                   (11c) the all-level lookup at the events-only and
                   streaming tables, exact against its twin, timed with its
@@ -146,9 +149,7 @@ toolkit (nvcc). Phases, each printing JSON lines:
                   all-level lookup at the two f32 val tables, exact
   8. kernels      one JSON line summing up every kernel
 and, as the last line, {"ok": true, "device": {...}}. Any failure exits
-nonzero before that line; so does a machine without CUDA. The profiles
-(torch.profiler: kernels by device time, idle share) always run; --profile
-DIR also writes their chrome traces into DIR.
+nonzero before that line; so does a machine without CUDA.
 --eval-only runs phases 1, 2, 7 and 12 and stops; --train-only runs phases
 1, 2 and 9 and stops; --dist-only runs phases 1, 2 and 10 and stops;
 --stream-only runs phases 1, 2 and 11 and stops.
@@ -766,73 +767,6 @@ def damped_pair(cfg, seed):
     return kern, plain
 
 
-def profile_run(fn, unprofiled_ms: float, out_dir, name: str,
-                vol_shapes=()):
-    """torch.profiler over one fn() (after one unprofiled warm call):
-    device kernel time by name, the chrome trace written into out_dir
-    (when it is given).
-    The idle share is 1 - summed kernel time over the unprofiled time.
-    With vol_shapes (the lookup volumes' shapes), also the device time
-    and count of the fills (zeroing the dVol buffers) and of the adds
-    (autograd summing per-iteration dVols) on tensors of those shapes."""
-    from torch.profiler import ProfilerActivity, profile
-
-    fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
-                 record_shapes=bool(vol_shapes)) as prof:
-        t0 = time.perf_counter()
-        fn()
-        torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t0) * 1e3
-    if out_dir:
-        out = Path(out_dir)
-        out.mkdir(parents=True, exist_ok=True)
-        prof.export_chrome_trace(str(out / f"{name}_trace.json"))
-    # device kernels only (the aten ops above them carry the same time)
-    rows = []
-    for evt in prof.key_averages():
-        if evt.device_type != torch.autograd.DeviceType.CUDA:
-            continue
-        dev_us = getattr(evt, "self_device_time_total",
-                         getattr(evt, "self_cuda_time_total", 0.0))
-        rows.append((dev_us, evt.key, evt.count))
-    rows.sort(reverse=True)
-    kernel_ms = sum(r[0] for r in rows) / 1e3
-
-    def share(*needles):
-        sel = [r for r in rows if any(n in r[1] for n in needles)]
-        return {"device_ms": sum(r[0] for r in sel) / 1e3,
-                "calls": sum(r[2] for r in sel)}
-
-    by_op = {"dvol_zero": {"device_ms": 0.0, "calls": 0},
-             "dvol_sum": {"device_ms": 0.0, "calls": 0}} if vol_shapes else {}
-    if vol_shapes:
-        want = [list(v) for v in vol_shapes]
-        for evt in prof.key_averages(group_by_input_shape=True):
-            shapes = evt.input_shapes or [[]]
-            kind = {"aten::fill_": "dvol_zero", "aten::add": "dvol_sum",
-                    "aten::add_": "dvol_sum"}.get(evt.key)
-            if kind and list(shapes[0]) in want:
-                dev_us = getattr(evt, "device_time_total",
-                                 getattr(evt, "cuda_time_total", 0.0))
-                rec = by_op[kind]
-                rec["device_ms"] += dev_us / 1e3
-                rec["calls"] += evt.count
-    return {"profiled_wall_ms": wall_ms, "kernel_ms": kernel_ms, **by_op,
-            "device_calls": sum(r[2] for r in rows),
-            "unprofiled_ms": unprofiled_ms,
-            "device_idle_share": max(0.0, 1 - kernel_ms / unprofiled_ms),
-            "lookup_fwd": share(klookup.NAME),
-            "lookup_bwd": share(klookup.BWD_NAME),
-            "conv_kernels": share("conv_igemm"),
-            "direct_copy": share("direct_copy"),
-            "memset_and_fill": share("Memset", "memset", "FillFunctor"),
-            "add": share("AddFunctor", "CUDAFunctor_add"),
-            "top": [{"name": k[:100], "device_ms": us / 1e3, "calls": n}
-                    for us, k, n in rows[:25]]}
-
-
 # ---------------------------------------------------------------------------
 # the train phase: the DSEC training step at full width
 
@@ -873,6 +807,26 @@ def build_corr_pyramid_shapes(cfg, n=TRAIN_B, h=TRAIN_H, w=TRAIN_W):
     return [(len(idx), n, h, w, h >> lvl, w >> lvl)
             for lvl, idx in enumerate(
                 level_target_indices(cfg.levels_per_target))]
+
+
+def dvol_ops(fn, vol_shapes) -> dict:
+    """torch.profiler over one fn(): the calls of fills (zeroing the dVol
+    accumulators) and of adds (autograd summing per-iteration dVols) on
+    tensors of the lookup volumes' shapes (vol_shapes)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 record_shapes=True) as prof:
+        fn()
+        torch.cuda.synchronize()
+    want = [list(v) for v in vol_shapes]
+    calls = {"dvol_zero": 0, "dvol_sum": 0}
+    for evt in prof.key_averages(group_by_input_shape=True):
+        kind = {"aten::fill_": "dvol_zero", "aten::add": "dvol_sum",
+                "aten::add_": "dvol_sum"}.get(evt.key)
+        if kind and list((evt.input_shapes or [[]])[0]) in want:
+            calls[kind] += evt.count
+    return calls
 
 
 def grads_finite(model) -> bool:
@@ -1802,8 +1756,7 @@ def predict_run(sub, root, ckpt, cfg, h: int = H, w: int = W, bf16=True,
     check(worst <= 1 / 128, f"predict_dsec PNGs vs the {what}: {worst}")
     check(counts[klookup.NAME] == ITERS * EVAL_TEST_WINDOWS,
           f"predict_dsec launches {counts}")
-    return {"pngs": len(pngs), "fields_per_s": out["fields_per_sec"],
-            "seconds": out["seconds"], "launches": counts,
+    return {"pngs": len(pngs), "seconds": out["seconds"], "launches": counts,
             f"max_abs_vs_{what}_px": worst, "bound_px": 1 / 128}
 
 
@@ -1835,7 +1788,6 @@ def eval_phase(workdir, seed: int, device="cuda", h: int = H, w: int = W,
         out, counts, csvs[name] = val_run(
             val_args(root, ckpt, EVAL_BATCH, cache, (), h, w), workdir, device)
         runs[name] = {"fields": out["fields"], "seconds": out["seconds"],
-                      "fields_per_s": out["metrics"]["fields_per_sec"],
                       "loader_wait_share": out["loader_wait_share"],
                       "launches": counts,
                       "launches_per_forward": {
@@ -1874,7 +1826,6 @@ def eval_phase(workdir, seed: int, device="cuda", h: int = H, w: int = W,
         device)
     want_opt = expected_launches(opt_cfg, EVAL_WINDOWS, h, w)
     emit("eval_val_opt_in", batch=EVAL_WINDOWS, fields=out["fields"],
-         fields_per_s=out["metrics"]["fields_per_sec"],
          loader_wait_share=out["loader_wait_share"],
          launches=opt_counts, launches_derived=want_opt,
          metrics={k: v for k, v in opt_csv.items() if k.startswith("val/")})
@@ -2079,11 +2030,11 @@ def multiflow_setup(workdir, seed: int, device="cuda"):
     return root, ckpt, cfg
 
 
-def train_phase(workdir, seed: int, device="cuda", profile_dir=None):
+def train_phase(workdir, seed: int, device="cuda"):
     """Phase 9: fabricate MultiFlow samples (9a), train through the CLI
     with validation, checkpoints and media (9b), resume (9c), step 1 on
-    the plain twins (9d), the lookups at these shapes (9e), a profile of
-    one train step (9f), the numbers (9g). Returns the CLI run's launch
+    the plain twins (9d), the lookups at these shapes (9e), the dVol work
+    of one train step (9f), the numbers (9g). Returns the CLI run's launch
     counts and the 9e records."""
     t_phase = time.perf_counter()
     root, ckpt, cfg = multiflow_setup(workdir, seed, device)
@@ -2135,14 +2086,11 @@ def train_phase(workdir, seed: int, device="cuda", profile_dir=None):
         "train_seconds": out["train_seconds"],
         "log_seconds": out["log_seconds"],
         "samples": out["samples"],
-        "samples_per_s": out["samples"] / out["train_seconds"],
         "loader_wait_share": (out["loader_wait_seconds"]
                               / out["train_seconds"]),
         "device_step_ms": step_ms,
         "device_step_ms_median": statistics.median(step_ms),
-        "val_fields": out["val_fields"], "val_seconds": out["val_seconds"],
-        "val_fields_per_s": out["val_fields"] / out["val_seconds"],
-        "max_memory_allocated": peak}
+        "val_fields": out["val_fields"], "max_memory_allocated": peak}
     emit("train_cli", **rec)
     check(out["step"] == 4 and len(losses) == 4
           and all(np.isfinite(losses)), f"train losses {losses}")
@@ -2222,8 +2170,8 @@ def train_phase(workdir, seed: int, device="cuda", profile_dir=None):
     emit("bezier_degree10", **bez)
     check(bez["ok"], f"degree-10 flow_at vs de Casteljau: {bez}")
 
-    # 9f. one train step at these shapes under the profiler: the device's
-    # kernels by time and its idle share; one dVol zeroing per level, no
+    # 9f. one train step at these shapes under the profiler, after one
+    # without it: 12 + 12 lookup launches, one dVol zeroing per level, no
     # dVol sum
     from bflow_tpu_torch.data.loader import Loader
     from bflow_tpu_torch.train import TaskConfig, TrainState, make_train_step
@@ -2241,37 +2189,25 @@ def train_phase(workdir, seed: int, device="cuda", profile_dir=None):
                       supervision_timestamps=supervision_timestamps(train_ds))
     step = make_train_step(model, task, state.optimizer, state.scheduler)
     levels = build_corr_pyramid_shapes(cfg, MF_BATCH, *MF_CROP)
-    # the step alone (no Loader threads beside it), host clock around
-    # work ending in a synchronize: the idle share's denominator
-    alone = []
-    for i in range(5):
-        t0 = time.perf_counter()
-        step(batch)
-        torch.cuda.synchronize()
-        if i >= 2:
-            alone.append((time.perf_counter() - t0) * 1e3)
-    alone_ms = statistics.median(alone)
-    prof = profile_run(lambda: step(batch), alone_ms, profile_dir,
-                       "train_step_multiflow", vol_shapes=levels)
-    emit("profile", path="train_step_multiflow", step_alone_ms=alone,
-         **prof)
-    check(prof["lookup_fwd"]["calls"] == prof["lookup_bwd"]["calls"]
-          == cfg.iters_train and prof["dvol_zero"]["calls"] == len(levels)
-          and prof["dvol_sum"]["calls"] == 0,
-          f"profiled MultiFlow step: {prof['lookup_fwd']} / "
-          f"{prof['lookup_bwd']} lookups, {prof['dvol_zero']} zeroings, "
-          f"{prof['dvol_sum']} sums")
+    step(batch)
+    kernels.reset_launch_counts()
+    dvol = dvol_ops(lambda: step(batch), levels)
+    step_counts = kernels.launch_counts()
+    emit("train_step_dvol", config="multiflow", **dvol, levels=len(levels),
+         launches=step_counts)
+    check(step_counts[klookup.NAME] == step_counts[klookup.BWD_NAME]
+          == cfg.iters_train and dvol["dvol_zero"] == len(levels)
+          and dvol["dvol_sum"] == 0,
+          f"MultiFlow step: {step_counts} launches, {dvol['dvol_zero']} "
+          f"zeroings, {dvol['dvol_sum']} sums")
     del model, state, step, batch
 
     # 9g. the numbers
     emit("train_phase", seconds=time.perf_counter() - t_phase,
-         samples_per_s=rec["samples_per_s"],
          loader_wait_share=rec["loader_wait_share"],
          log_share=rec["log_seconds"] / rec["train_seconds"],
          device_step_ms_median=rec["device_step_ms_median"],
-         step_alone_ms=alone_ms, step_kernel_ms=prof["kernel_ms"],
          max_memory_allocated=peak,
-         val_fields_per_s=rec["val_fields_per_s"],
          lookup_ms={"forward": fwd["ms"], "backward": bwd["ms"]},
          x_bound={"forward": fwd["ms"] / fwd["bound_ms"],
                   "backward": bwd["ms"] / bwd["bound_ms"]})
@@ -2586,7 +2522,7 @@ def dist_phase(workdir, seed: int) -> dict:
 
 
 STREAM_TOL = 5e-2  # the streaming forward (bf16) vs its plain twins
-STREAM_WINDOWS = 8  # timed windows, after the first
+STREAM_WINDOWS = 8  # streaming.main's windows after the first
 RELEASED_TOL = 1e-3  # the tool's own PASS threshold
 RELEASED_TIMES = (0.5, 1.0)
 # each family at the size its dataset delivers: DSEC 480x640 (degree 2),
@@ -2594,13 +2530,12 @@ RELEASED_TIMES = (0.5, 1.0)
 RELEASED_SIZE = {2: (480, 640), 10: (384, 512)}
 
 
-def stream_window(seed: int, profile_dir=None) -> dict:
+def stream_window(seed: int) -> dict:
     """11a: the streaming window at full width. One window's events
     through the device voxelizer against the host rasterizer (1e-4) and
     through the forward (Bezier head damped) against its plain twins
-    (5e-2); then the entry
-    point (streaming.main: a first window and STREAM_WINDOWS timed ones),
-    its launches counted, its peak memory; a profile of one window."""
+    (5e-2); then the entry point (streaming.main: a first window and
+    STREAM_WINDOWS more), its launches counted, its peak memory."""
     from bflow_tpu_torch import streaming as st
     from bflow_tpu_torch.data.representations import VoxelGrid
 
@@ -2620,7 +2555,7 @@ def stream_window(seed: int, profile_dir=None) -> dict:
     # twins: undamped, the random-init recurrence amplifies one bf16 ulp
     # anywhere (the norm kernel's, or the input's) to ~0.3 of the flows
     # within 6 iterations
-    model, pipeline = st.make_pipeline(device="cuda", seed=seed)
+    model, _ = st.make_pipeline(device="cuda", seed=seed)
     damp_head(model)
     kern = st.grid_flows(model, grid, st.QUERY_TIMES)
     with plain_twins():
@@ -2642,10 +2577,6 @@ def stream_window(seed: int, profile_dir=None) -> dict:
           f"11a: launches over {n_win} windows {counts}, derived per "
           f"window {want}")
     check(run["finite"], "11a: the entry point's flows are not finite")
-    prof = profile_run(lambda: pipeline(*inputs, st.QUERY_TIMES),
-                       run["ms_per_window"], profile_dir, "stream_window")
-    check(prof["lookup_fwd"]["calls"] == cfg.iters_test,
-          f"11a: profiled window {prof['lookup_fwd']} lookup launches")
     return {"events": st.N_EVENTS, "capacity": st.EVENT_CAPACITY,
             "height": h, "width": w, "iters": cfg.iters_test,
             "query_times": list(st.QUERY_TIMES),
@@ -2653,24 +2584,17 @@ def stream_window(seed: int, profile_dir=None) -> dict:
             "flows_rel_vs_plain_twins": rel, "tol": STREAM_TOL,
             "launches": counts, "windows_run": n_win,
             "launches_per_window": {k: v / n_win for k, v in counts.items()},
-            "max_memory_allocated": peak,
-            **{k: run[k] for k in ("first_window_s", "ms_per_window",
-                                   "windows_per_s", "voxelizer_ms",
-                                   "forward_ms")},
-            "profile": {k: prof[k] for k in (
-                "kernel_ms", "device_calls", "device_idle_share",
-                "unprofiled_ms", "lookup_fwd", "top")}}
+            "max_memory_allocated": peak}
 
 
-def released_family(workdir, idx: int, name: str, kw: dict,
-                    profile_dir=None) -> dict:
+def released_family(workdir, idx: int, name: str, kw: dict) -> dict:
     """11b: one released family through parity_released: its random-init
     export saved as a .ckpt and read back (infer_config must give the
     family), the tool at the family's native size (B=1, 12 iterations,
-    f32, then bf16 and pallas_q8) with its launches counted and TF32 left
-    at PyTorch's default before it (the tool must turn it off), its f32
-    flows against the same forward on the plain twins, and the time and
-    profile of that forward."""
+    f32, then bf16 and pallas_q8) with its launches counted and both TF32
+    flags on in the caller (the tool pins full f32 inside its forwards and
+    must leave them on), and its f32 flows against the same forward on
+    the plain twins."""
     from bflow_tpu_torch import parity_released as pr
 
     cfg = bt.RaftSplineConfig(**kw)
@@ -2683,19 +2607,19 @@ def released_family(workdir, idx: int, name: str, kw: dict,
         dataclasses.replace(cfg, lookup_method=m, compute_dtype=p,
                             corr_precision=p), 1, *size, ITERS)[k]
         for m, p in modes) for k in kernels.KERNELS}
-    torch.backends.cudnn.allow_tf32 = True  # PyTorch's default
-    torch.backends.cuda.matmul.allow_tf32 = True
     t0 = time.perf_counter()
     kernels.reset_launch_counts()
-    out = pr.main([str(path), "--iters", str(ITERS), "--times",
-                   ",".join(map(str, RELEASED_TIMES)), "--size",
-                   *map(str, size), "--bf16-also", "--q8-also"],
-                  device="cuda")
+    with tf32(True):
+        out = pr.main([str(path), "--iters", str(ITERS), "--times",
+                       ",".join(map(str, RELEASED_TIMES)), "--size",
+                       *map(str, size), "--bf16-also", "--q8-also"],
+                      device="cuda")
+        flags_after = tf32_state()
     counts = kernels.launch_counts()
     seconds = time.perf_counter() - t0
-    check(not (torch.backends.cudnn.allow_tf32
-               or torch.backends.cuda.matmul.allow_tf32),
-          f"11b {name}: the tool left TF32 on in its f32 mode")
+    check(flags_after == (True, True),
+          f"11b {name}: the tool left the caller's TF32 flags at "
+          f"{flags_after}")
     check(out["config"] == cfg and out["name"].startswith(name + " "),
           f"11b {name}: infer_config gave {out['name']}")
     check(counts == want, f"11b {name}: launches {counts}, derived {want}")
@@ -2703,9 +2627,7 @@ def released_family(workdir, idx: int, name: str, kw: dict,
         check(all(np.isfinite(f).all() and f.shape == (1, 2, *size)
                   for f in flows.values()),
               f"11b {name}: {mode} flows not finite or misshapen")
-    # the tool's f32 model once more: its forward on the plain twins, then
-    # alone, host clock around forwards ending in a synchronize (1 warm-up,
-    # 3 timed)
+    # the tool's f32 model once more: its forward on the plain twins
     voxel, images = pr.random_inputs(cfg, size)
     model = pr.load_model(cfg, pr.load_state_dict(str(path)), "float32",
                           device="cuda")
@@ -2715,18 +2637,6 @@ def released_family(workdir, idx: int, name: str, kw: dict,
                     twin)
     check(rel <= RELEASED_TOL,
           f"11b {name}: f32 kernel path vs plain twins {rel}")
-    vox, img = pr.model_inputs(model, voxel, images)
-    run_forward(model, vox, img)
-    fwd_ms = []
-    for _ in range(3):
-        t1 = time.perf_counter()
-        run_forward(model, vox, img)
-        fwd_ms.append((time.perf_counter() - t1) * 1e3)
-    prof = profile_run(lambda: run_forward(model, vox, img),
-                       statistics.median(fwd_ms), profile_dir,
-                       f"released_{name}")
-    check(prof["lookup_fwd"]["calls"] == ITERS,
-          f"11b {name}: profiled forward {prof['lookup_fwd']} lookups")
     return {"family": name, "inferred": out["name"], "size": list(size),
             "iters": ITERS, "times": list(RELEASED_TIMES),
             "f32_rel_vs_plain_twins": rel, "tol": RELEASED_TOL,
@@ -2736,14 +2646,10 @@ def released_family(workdir, idx: int, name: str, kw: dict,
                                     for f in out["flows"]["float32"].values()),
             "launches": counts, "launches_per_forward": {
                 k: v / len(modes) for k, v in counts.items()},
-            "ms_per_forward_f32": statistics.median(fwd_ms),
-            "ms_all_f32": fwd_ms, "seconds": seconds,
-            "profile_f32": {k: prof[k] for k in (
-                "kernel_ms", "device_calls", "device_idle_share",
-                "lookup_fwd", "direct_copy", "top")}}
+            "tf32_flags_after": list(flags_after), "seconds": seconds}
 
 
-def stream_phase(workdir, seed: int, profile_dir=None) -> dict:
+def stream_phase(workdir, seed: int) -> dict:
     """Phase 11: the streaming window (11a), the four released families
     through the tool (11b), and the lookup at their tables (11c). Returns
     what the kernels line reads."""
@@ -2752,12 +2658,12 @@ def stream_phase(workdir, seed: int, profile_dir=None) -> dict:
     from bflow_tpu_torch.models.corr import level_target_indices
 
     t_phase = time.perf_counter()
-    stream = stream_window(seed, profile_dir)
+    stream = stream_window(seed)
     emit("stream_window", **stream)
 
     families = {}
     for idx, (name, kw) in enumerate(pr.RELEASED_FAMILIES):
-        rec = released_family(workdir, idx, name, kw, profile_dir)
+        rec = released_family(workdir, idx, name, kw)
         emit("released_family", **rec)
         families[name] = rec
 
@@ -2863,7 +2769,6 @@ def f32_val(what: str, args, ckpt, cfg, workdir, n_fields: int, batch: int,
                                          cfg.compute_dtype],
            "batch": batch, "batches": sizes, "height": h, "width": w,
            "fields": out["fields"], "seconds": out["seconds"],
-           "fields_per_s": out["metrics"]["fields_per_sec"],
            "loader_wait_share": out["loader_wait_share"],
            "launches": counts, "launches_per_forward": {
                k: v / len(sizes) for k, v in counts.items()},
@@ -3030,9 +2935,6 @@ def main() -> int:
     ap.add_argument("--stream-only", action="store_true",
                     help="after the build, run only streaming inference and "
                          "the released-checkpoint tool (phase 11), and stop")
-    ap.add_argument("--profile", metavar="DIR",
-                    help="write the chrome traces of the profiled forward "
-                         "and train step into DIR")
     args = ap.parse_args()
 
     # 1. device
@@ -3073,13 +2975,13 @@ def main() -> int:
                 f32_eval_phase(Path(tmp), args.seed)
         if args.train_only:
             with tempfile.TemporaryDirectory() as tmp:
-                train_phase(Path(tmp), args.seed, profile_dir=args.profile)
+                train_phase(Path(tmp), args.seed)
         if args.dist_only:
             with tempfile.TemporaryDirectory() as tmp:
                 dist_phase(Path(tmp), args.seed)
         if args.stream_only:
             with tempfile.TemporaryDirectory() as tmp:
-                stream_phase(Path(tmp), args.seed, profile_dir=args.profile)
+                stream_phase(Path(tmp), args.seed)
         print(json.dumps({"ok": True, "device": {
             "platform": "gpu", "kind": kind,
             "count": torch.cuda.device_count()}}), flush=True)
@@ -3145,24 +3047,16 @@ def main() -> int:
     cfg = bt.flagship_config()
     model = bt.build_model(cfg, device="cuda", seed=args.seed)
     voxel, images = flagship_inputs(args.seed)
-    warmup, timed = 2, 5
+    n_fwd = 2
     torch.cuda.reset_peak_memory_stats()
     kernels.reset_launch_counts()
-    for _ in range(warmup):
+    for _ in range(n_fwd):
         low, up = run_forward(model, voxel, images)
-    times = []
-    for _ in range(timed):
-        t0 = time.perf_counter()
-        low, up = run_forward(model, voxel, images)
-        times.append((time.perf_counter() - t0) * 1e3)
     counts = kernels.launch_counts()
     flow = up.flow_at(1.0)
-    n_fwd = warmup + timed
     per_fwd = {k: v / n_fwd for k, v in counts.items()}
-    ms = statistics.median(times)
     emit("forward", config="flagship E_I_LU4_BD2 bf16 fuse_corr_conv",
          batch=1, height=H, width=W, iters=ITERS, forwards=n_fwd,
-         ms_per_forward=ms, ms_all=times, fields_per_s=1e3 / ms,
          max_memory_allocated=torch.cuda.max_memory_allocated(),
          launches=counts, launches_per_forward=per_fwd,
          flow_shape=list(flow.shape),
@@ -3174,77 +3068,43 @@ def main() -> int:
     check(per_fwd == want,
           f"launches per forward {per_fwd}, derived {want} (one all-level "
           f"lookup launch per iteration)")
-    # device calls per forward, direct_copy among them
-    prof = profile_run(lambda: run_forward(model, voxel, images), ms,
-                       args.profile, "forward")
-    emit("profile", path="forward", **prof)
-    check(prof["lookup_fwd"]["calls"] == ITERS,
-          f"profiled forward: {prof['lookup_fwd']} lookup launches")
-    default_model = model
+    del model
 
     # 4b. the opt-in flagship forward: q8 lookup, stem and conv kernels
     model = bt.build_model(opt_cfg, device="cuda", seed=args.seed)
     torch.cuda.reset_peak_memory_stats()
     kernels.reset_launch_counts()
-    for _ in range(warmup):
-        low, up = run_forward(model, voxel, images)
-    opt_times = []
+    low, up = run_forward(model, voxel, images)
     conv_common.reset_counters()
-    for _ in range(timed):
-        t0 = time.perf_counter()
-        low, up = run_forward(model, voxel, images)
-        opt_times.append((time.perf_counter() - t0) * 1e3)
+    low, up = run_forward(model, voxel, images)
     opt_counts = kernels.launch_counts()
-    # the wrappers' own work in the timed forwards: one layout copy per
+    # the wrappers' own work in the second forward: one layout copy per
     # conv whose input has a channel count that is not a multiple of 8
     # (the stems, convf1), none elsewhere (the activations stay
     # channels-last between the kernels), and no weight prepared twice
-    copies_per_fwd = conv_common.layout_copies / timed
-    preps_timed = conv_common.weight_preps
+    copies_per_fwd = conv_common.layout_copies
+    preps_again = conv_common.weight_preps
     want_copies = sum(r["per_forward"] for r in flagship_convs(opt_cfg)
                       if r["kernel"] and r["shape"][1] % 8)
     opt_per_fwd = {k: v / n_fwd for k, v in opt_counts.items()}
-    opt_ms = statistics.median(opt_times)
     want_opt = expected_launches(opt_cfg)
     emit("opt_forward", config="flagship + pallas_q8 + pallas_stem + "
                               "pallas_conv, bf16",
          batch=1, height=H, width=W, iters=ITERS, forwards=n_fwd,
-         ms_per_forward=opt_ms, ms_all=opt_times, fields_per_s=1e3 / opt_ms,
          max_memory_allocated=torch.cuda.max_memory_allocated(),
          launches=opt_counts, launches_per_forward=opt_per_fwd,
          launches_per_forward_derived=want_opt,
          layout_copies_per_forward=copies_per_fwd,
          layout_copies_per_forward_derived=want_copies,
-         weight_preps_in_timed_forwards=preps_timed,
+         weight_preps_in_second_forward=preps_again,
          finite=bool(torch.isfinite(up.params).all()))
     check(bool(torch.isfinite(up.params).all())
           and bool(torch.isfinite(low.params).all()), "opt-in: non-finite")
     check(opt_per_fwd == want_opt,
           f"opt-in launches per forward {opt_per_fwd}, derived {want_opt}")
-    check(copies_per_fwd == want_copies and preps_timed == 0,
+    check(copies_per_fwd == want_copies and preps_again == 0,
           f"opt-in forward: {copies_per_fwd} layout copies per forward "
-          f"(derived {want_copies}), {preps_timed} weights prepared again")
-    # the two paths in turns (default, opt-in, opt-in, default): the host
-    # sets both walls and drifts within a process, so the medians of
-    # phases 4 and 4b, taken one after the other, do not compare
-    turns = {"default": [], "opt_in": []}
-    for _ in range(6):
-        for name, m in (("default", default_model), ("opt_in", model),
-                        ("opt_in", model), ("default", default_model)):
-            t0 = time.perf_counter()
-            run_forward(m, voxel, images)
-            turns[name].append((time.perf_counter() - t0) * 1e3)
-    turn_ms = {k: statistics.median(v) for k, v in turns.items()}
-    emit("opt_vs_default", forwards_each=12, in_turns_ms=turn_ms,
-         in_turns_ms_all=turns,
-         opt_in_over_default=turn_ms["opt_in"] / turn_ms["default"],
-         phase_medians_ms={"default": ms, "opt_in": opt_ms})
-    del default_model
-    prof = profile_run(lambda: run_forward(model, voxel, images), opt_ms,
-                       args.profile, "opt_forward")
-    emit("profile", path="opt_forward", **prof)
-    check(prof["lookup_fwd"]["calls"] == ITERS,
-          f"profiled opt-in forward: {prof['lookup_fwd']} lookup launches")
+          f"(derived {want_copies}), {preps_again} weights prepared again")
     del model
 
     # 5. kernel path vs plain path on the card
@@ -3294,31 +3154,23 @@ def main() -> int:
     step = make_train_step(model, task, state.optimizer, state.scheduler)
     stats0 = {k: v.clone() for k, v in model.cnet.state_dict().items()
               if "running" in k}
-    warmup, timed = 2, 5
+    n_steps = 7
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     kernels.reset_launch_counts()
-    losses, times, finite = [], [], True
-    for i in range(warmup + timed):
-        t0 = time.perf_counter()
+    losses, finite = [], True
+    for _ in range(n_steps):
         metrics = step(batch)
-        torch.cuda.synchronize()
-        if i >= warmup:
-            times.append((time.perf_counter() - t0) * 1e3)
         losses.append(metrics["train/l1_seq_loss"][0].item())
         finite = finite and grads_finite(model)
     train_counts = kernels.launch_counts()
-    n_steps = warmup + timed
     per_step = {k: v / n_steps for k, v in train_counts.items()}
-    train_ms = statistics.median(times)
     moved = max((v - stats0[k]).abs().max().item()
                 for k, v in model.cnet.state_dict().items() if k in stats0)
     emit("train", config="flagship E_I_LU4_BD2 f32 fuse_corr_conv, "
                          "damped head",
          batch=TRAIN_B, height=TRAIN_H, width=TRAIN_W, iters=tcfg.iters_train,
-         steps=n_steps, ms_per_step=train_ms, ms_all=times,
-         samples_per_s=TRAIN_B * 1e3 / train_ms,
-         max_memory_allocated=torch.cuda.max_memory_allocated(),
+         steps=n_steps, max_memory_allocated=torch.cuda.max_memory_allocated(),
          launches=train_counts, launches_per_step=per_step, losses=losses,
          lr=state.optimizer.param_groups[0]["lr"], grads_finite=finite,
          cnet_running_stats_moved=moved)
@@ -3332,13 +3184,11 @@ def main() -> int:
     # dVol per step: one zeroing per level (the accumulators), no sum of
     # per-iteration dVols
     levels = build_corr_pyramid_shapes(tcfg)
-    prof = profile_run(lambda: step(batch), train_ms, args.profile,
-                       "train_step", vol_shapes=levels)
-    emit("profile", path="train_step", **prof)
-    check(prof["dvol_zero"]["calls"] == len(levels)
-          and prof["dvol_sum"]["calls"] == 0,
-          f"train step dVol: {prof['dvol_zero']} zeroings, "
-          f"{prof['dvol_sum']} sums; want {len(levels)} and 0")
+    dvol = dvol_ops(lambda: step(batch), levels)
+    emit("train_step_dvol", config="dsec", **dvol, levels=len(levels))
+    check(dvol["dvol_zero"] == len(levels) and dvol["dvol_sum"] == 0,
+          f"train step dVol: {dvol['dvol_zero']} zeroings, "
+          f"{dvol['dvol_sum']} sums; want {len(levels)} and 0")
     del model, state, step
 
     # 6b. one bf16 flagship step
@@ -3426,14 +3276,13 @@ def main() -> int:
         # samples, two epochs with validation, checkpoints and media, the
         # resume, step 1 on the plain twins, the lookups at these shapes;
         # 10. data-parallel training, the CLI's runs on phase 9's samples
-        mf_counts, mf_fwd, mf_bwd = train_phase(Path(tmp), args.seed,
-                                                profile_dir=args.profile)
+        mf_counts, mf_fwd, mf_bwd = train_phase(Path(tmp), args.seed)
         dist_counts = dist_phase(Path(tmp), args.seed)
 
         # 11. streaming inference over raw events at full width, the four
         # released families through the parity tool at their native sizes,
         # the lookup at their tables
-        p11 = stream_phase(Path(tmp), args.seed, profile_dir=args.profile)
+        p11 = stream_phase(Path(tmp), args.seed)
 
         # 12. val (DSEC and MultiFlow) and predict_dsec at the config's own
         # f32 on phase 7's recordings and phase 9's samples, TF32 on in the

@@ -11,7 +11,8 @@ both off for their span (bflow_tpu_torch/utils/precision.py:full_f32) and
 give the caller's settings back. The flags are process-wide, so the CPU
 cases read them from hooks inside those calls; the arithmetic they
 switch exists only on the card, where the cuda cases hold a forward and a
-train step bit-equal with the caller's flags on and off.
+train step bit-equal with the caller's flags on and off, and find the
+caller's flags unchanged after val, predict_dsec and the training loop.
 
 JAX is imported inside the case that uses it, so that the cuda cases run
 on a machine without JAX.
@@ -290,5 +291,44 @@ def test_val_and_predict_at_f32_leave_the_callers_flags_cuda(
                                               "batch_size"))]
         + [f"output_dir={tmp_path / 'submission'}"], device="cuda")
     assert pred["pngs"] == 2
+    assert (torch.backends.cudnn.allow_tf32,
+            torch.backends.cuda.matmul.allow_tf32) == (on, on)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("on", [True, False])
+def test_train_loop_leaves_the_callers_flags_cuda(cuda_flags, tmp_path,
+                                                  monkeypatch, on):
+    """loop.main on the card, one step of tests/test_torch_train_cli.py's
+    smallest MultiFlow run (72x104 samples, 64x96 crop, 1 iteration),
+    leaves both TF32 flags as the caller set them: its steps pin full f32
+    themselves. (That file's fixtures write HDF5 through h5py, which the
+    card's machine lacks, hence chip_smoke.py's writer here.)"""
+    from bflow_tpu_torch.train import loop
+
+    cs = _chip_smoke()
+    monkeypatch.setenv("WANDB_MODE", "disabled")
+    root = tmp_path / "multiflow"
+    for split in ("train", "val"):
+        for i in range(2):
+            cs.write_multiflow_sample(root / split / f"seq_{i:04d}",
+                                      3 * i + len(split), 20_000, 72, 104)
+    args = ["dataset=multiflow_regen", "model=raft-spline",
+            f"dataset.path={root}", cs.MF_EXPERIMENT,
+            "model.num_bins.context=6", "model.num_bins.correlation=4",
+            "model.bezier_degree=2",
+            "model.correlation.ev.target_indices=[1,3,5]",
+            "model.correlation.ev.levels=[1,1,2]",
+            "model.num_iter.train=1", "model.num_iter.test=1",
+            "dataset.flow_every_n_ms=100", "dataset.orig_hw=[72,104]",
+            "dataset.crop_hw=[64,96]", "dataset.load_voxel_grid=false",
+            "training.batch_size=2", "training.max_steps=1",
+            "training.max_epochs=1", "training.limit_val_batches=0",
+            "hardware.devices=1", "hardware.num_workers=2",
+            "logging.only_numbers=true", "wandb.group_name=tf32",
+            f"logging.out_dir={tmp_path}"]
+    _set_tf32(on)
+    out = loop.main(args, device="cuda")
+    assert out["step"] == 1
     assert (torch.backends.cudnn.allow_tf32,
             torch.backends.cuda.matmul.allow_tf32) == (on, on)

@@ -264,21 +264,65 @@ def test_main_on_cpu(tmp_path, exports, capsys):
                    for f in flows.values())
 
 
+@pytest.mark.parametrize("all_families", [False, True], ids=["ckpt", "all"])
+def test_main_runs_the_oracle_at_full_f32(tmp_path, exports, monkeypatch,
+                                          all_families):
+    """The reference oracle's own torch forward runs under full_f32 in both
+    of the tool's paths: TF32 off inside it, and the caller's flags (on
+    here) on again after main. The oracle is a stub that records the flags
+    and answers with the port's f32 flow."""
+    seen = []
+
+    def torch_forward_flow(cfg, sd, voxel, images, iters, times):
+        seen.append((torch.backends.cudnn.allow_tf32,
+                     torch.backends.cuda.matmul.allow_tf32))
+        return pr.our_flow(cfg=cfg, sd=sd, voxel_nchw=voxel,
+                           images_nchw=images, iters=iters, times=times,
+                           precision="float32", device="cpu")
+
+    monkeypatch.setattr(oracle, "reference_available", lambda: True)
+    monkeypatch.setattr(oracle, "torch_forward_flow", torch_forward_flow)
+    monkeypatch.setattr(torch.backends.cudnn, "allow_tf32", True)
+    monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", True)
+    if all_families:
+        argv = ["--all"]
+    else:
+        cfg, sd = exports["E_LU4_BD2"]
+        path = tmp_path / "E_LU4_BD2.ckpt"
+        torch.save({"state_dict": sd}, path)
+        argv = [str(path)]
+    pr.main([*argv, "--iters", "1", "--size", "64", "64"], device="cpu")
+    assert seen == [(False, False)] * (len(FAMILIES) if all_families else 1)
+    assert torch.backends.cudnn.allow_tf32
+    assert torch.backends.cuda.matmul.allow_tf32
+
+
 @pytest.mark.cuda
 def test_main_turns_tf32_off_on_gpu(tmp_path, exports, monkeypatch):
-    """The f32 parity mode is full f32 on the card: the tool turns TF32
-    off for matmuls and cuDNN itself, whatever it was before."""
+    """The f32 parity mode is full f32 on the card, with TF32 off inside
+    the tool's forwards only (utils/precision.py:full_f32): its f32 flows
+    with the caller's flags on equal those with them off (deterministic
+    cuDNN), and the caller's flags are as it set them after main."""
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU: the tool's CUDA path")
-    monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", True)
-    monkeypatch.setattr(torch.backends.cudnn, "allow_tf32", True)
+    for mod, name in ((torch.backends.cuda.matmul, "allow_tf32"),
+                      (torch.backends.cudnn, "allow_tf32"),
+                      (torch.backends.cudnn, "deterministic")):
+        monkeypatch.setattr(mod, name, True)
     cfg, sd = exports["E_LU4_BD2"]
     path = tmp_path / "E_LU4_BD2.ckpt"
     torch.save({"state_dict": sd}, path)
-    out = pr.main([str(path), "--iters", "1", "--skip-torch"])
-    assert not torch.backends.cuda.matmul.allow_tf32
-    assert not torch.backends.cudnn.allow_tf32
-    assert all(np.isfinite(f).all() for f in out["flows"]["float32"].values())
+    flows = {}
+    for on in (True, False):
+        torch.backends.cuda.matmul.allow_tf32 = on
+        torch.backends.cudnn.allow_tf32 = on
+        out = pr.main([str(path), "--iters", "1", "--skip-torch"])
+        assert torch.backends.cuda.matmul.allow_tf32 == on
+        assert torch.backends.cudnn.allow_tf32 == on
+        flows[on] = out["flows"]["float32"]
+    assert all(np.isfinite(f).all() for f in flows[True].values())
+    assert all(np.array_equal(flows[True][t], flows[False][t])
+               for t in flows[False])
 
 
 def test_all_on_cpu(capsys):
