@@ -5,7 +5,8 @@ from __future__ import annotations
 
 from typing import Dict
 
-from bflow_tpu_torch.kernels import conv3x3, corr_lookup, norm, stem_conv
+from bflow_tpu_torch.kernels import (conv3x3, corr_lookup, corr_proj, norm,
+                                    stem_conv)
 
 # kernel name -> (wrapper module, the name of its launch counter there)
 KERNELS = {
@@ -14,6 +15,7 @@ KERNELS = {
     stem_conv.NAME: (stem_conv, "launches"),
     conv3x3.NAME: (conv3x3, "launches"),
     norm.NAME: (norm, "launches"),
+    corr_proj.NAME: (corr_proj, "launches"),
 }
 
 

@@ -29,7 +29,8 @@ SOURCES = {"corr_lookup_fwd": "corr_lookup_fwd.cu",
            "corr_lookup_bwd": "corr_lookup_bwd.cu",
            "conv3x3": "conv3x3.cu",
            "stem_conv": "stem_conv.cu",
-           "norm": "norm.cu"}
+           "norm": "norm.cu",
+           "corr_proj": "corr_proj.cu"}
 
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",

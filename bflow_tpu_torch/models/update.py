@@ -25,6 +25,7 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from bflow_tpu_torch.kernels import corr_proj
 from bflow_tpu_torch.kernels.conv_common import cached
 from bflow_tpu_torch.models.config import RaftSplineConfig
 from bflow_tpu_torch.models.extractor import Conv2d, conv2d
@@ -157,7 +158,10 @@ class BasicMotionEncoder(nn.Module):
         rounded to the compute dtype, the contraction accumulates in f32,
         the f32 bias is added, then one rounding and the ReLU (the
         per-level partial sums, as one product). Otherwise the concat
-        form: a 1x1 conv in the compute dtype."""
+        form: a 1x1 conv in the compute dtype. The fused form of a bf16 map
+        on the card, where autograd records nothing, is the corr_proj
+        kernel (kernels/corr_proj.py): the same function, ReLU included,
+        without the f32 copies."""
         cdt = self.compute_dtype
         w = self.convc1.weight.reshape(256, self.corr_planes)
         b = self.convc1.bias
@@ -173,6 +177,10 @@ class BasicMotionEncoder(nn.Module):
         if x.shape[1] != self.corr_planes:
             raise ValueError((tuple(x.shape), self.corr_planes))
         if fused:
+            if not isinstance(corr, (list, tuple)) and corr_proj.engages(
+                    x, self.convc1.weight, b, cdt):
+                y = corr_proj.corr_proj(x, self.convc1.weight, b)
+                return y.reshape(N, h1, w1, 256).permute(0, 3, 1, 2)
             if cdt is not None:
                 w = w.to(cdt)
                 x = x.to(cdt)

@@ -34,7 +34,14 @@ toolkit (nvcc). Phases, each printing JSON lines:
                   B=16, channels-last, timed beside its byte bound, its
                   plain version and F.instance_norm / F.batch_norm, and
                   on NCHW inputs; within one bf16 ulp, bit-repeatable,
-                  the input's layout kept
+                  the input's layout kept; (3e) the convc1 kernel at the
+                  map widths of DSEC E_I, MultiFlow E_I and DSEC
+                  events-only (891, 972, 567 channels) and M = 76,800,
+                  4,800, 1,280 and 1,000 rows, held to the exact result of
+                  its function (within one bf16 ulp, or the f32 sums'
+                  round-off near 0), bit-repeatable, and timed at DSEC
+                  E_I's width beside its byte bound, its plain version,
+                  the f32 torch.addmm and a bf16 torch.mm
   4. forward      the flagship RAFT-Spline inference forward (480x640, B=1,
                   bf16, 12 iterations) through build_model(), twice; launch
                   counts reset before and read after (one all-level lookup
@@ -203,6 +210,7 @@ from bflow_tpu_torch.kernels import build as kbuild
 from bflow_tpu_torch.kernels import conv3x3 as kconv
 from bflow_tpu_torch.kernels import conv_common
 from bflow_tpu_torch.kernels import corr_lookup as klookup
+from bflow_tpu_torch.kernels import corr_proj as kproj
 from bflow_tpu_torch.kernels import norm as knorm
 from bflow_tpu_torch.kernels import stem_conv as kstem
 from bflow_tpu_torch.models.corr import KERNEL_METHODS, quantizes
@@ -1021,6 +1029,18 @@ def norm_launches(cfg, train: bool = False) -> int:
     return 15 * sum(k in ("instance", "batch") for k in kinds)
 
 
+def proj_launches(cfg, n, h, w, iters, train=False) -> int:
+    """convc1 kernel launches in one forward: one an iteration where the
+    fused convc1 reads a bf16 map (bf16 volumes and compute; the onehot
+    method's map is f32) of a multiple of 8 rows, in a forward that
+    autograd does not record."""
+    bf16_map = (cfg.compute_dtype == cfg.corr_precision == "bfloat16"
+                and cfg.lookup_method != "onehot")
+    rows = n * (h // 8) * (w // 8)
+    return iters * (not train and cfg.fuse_corr_conv and bf16_map
+                    and rows % kproj.ROWS == 0)
+
+
 def expected_launches(cfg, n=1, h=H, w=W, iters=ITERS, train=False):
     """Launches of each kernel in one forward (``train``: a training
     forward, autograd recording), from the copied gates."""
@@ -1029,6 +1049,7 @@ def expected_launches(cfg, n=1, h=H, w=W, iters=ITERS, train=False):
         if row["kernel"]:
             want[row["kernel"]] += row["per_forward"]
     want[knorm.NAME] = norm_launches(cfg, train)
+    want[kproj.NAME] = proj_launches(cfg, n, h, w, iters, train)
     # a level for the all-level kernel (pallas_q8's int8 levels too): one
     # launch per iteration
     table = cfg.lookup_method in KERNEL_METHODS and any(
@@ -1187,6 +1208,7 @@ class plain_twins:
                        (kstem, "_fwd_cuda", kstem._fwd_cuda),
                        (knorm, "_instance_cuda", knorm._instance_cuda),
                        (knorm, "_batch_cuda", knorm._batch_cuda),
+                       (kproj, "_proj_cuda", kproj._proj_cuda),
                        (klookup, "lookup_pyramid_cuda",
                         klookup.lookup_pyramid_cuda),
                        (klookup, "lookup_pyramid_bwd_cuda",
@@ -1195,6 +1217,7 @@ class plain_twins:
         kstem._fwd_cuda = conv_common.conv_plain
         knorm._instance_cuda = knorm.instance_norm_plain
         knorm._batch_cuda = knorm.batch_norm_plain
+        kproj._proj_cuda = kproj.corr_proj_plain
         klookup.lookup_pyramid_cuda = klookup.corr_lookup_pyramid_plain
         klookup.lookup_pyramid_bwd_cuda = (
             klookup.corr_lookup_pyramid_bwd_plain)
@@ -1447,6 +1470,184 @@ def norm_summary(recs, request_ms, counts, eval_counts):
                    "channels-last, ReLU fused",
             "request_ms": request_ms,
             "request": "the 45 norms of a B=16 bf16 DSEC forward"}
+
+
+# ---------------------------------------------------------------------------
+# phase 3e: the convc1 kernel against its plain version
+
+# the map's channels K: DSEC E_I (11 lookup slots of 81), MultiFlow E_I (12),
+# DSEC events-only (7)
+PROJ_K = [(891, "DSEC E_I"), (972, "MultiFlow E_I"),
+          (567, "DSEC events-only")]
+# the map's rows M: the bf16 DSEC cell's B=16 (16 x 60 x 80), B=1, the
+# streaming window (32 x 40), and one that no 128-row tile divides
+PROJ_M = [76800, 4800, 1280, 1000]
+PROJ_TIMED_K = 891
+# the kernel against the exact result of its function (f64 sums of the
+# bf16-rounded operands and the f32 bias, ReLU, rounded once to bf16): every
+# output within one bf16 ulp of it, or, near 0, where an ulp is smaller than
+# the f32 sums' round-off, within PROJ_ATOL or the bound on K f32 additions
+# that each lose at most one unit in the last place, K 2^-23 sum_k |x_k w_k|
+# (the tensor cores' f32 accumulation is not the CUDA cores' rounding to
+# nearest); at most PROJ_ULP_SHARE of the outputs one ulp off the plain
+# version (the eager f32 chain, whose sums run in another order)
+PROJ_ULP_SHARE = 5e-3
+PROJ_ATOL = 1e-5
+
+
+def proj_inputs(m, k, seed, device="cuda"):
+    """x (M, K) bf16 ~ 2 N(0, 1), about the lookups' spread; convc1's
+    weight (256, K, 1, 1) f32 as the model draws it (He with fan-out) and
+    a uniform bias (+-1/sqrt(K)): about half the outputs are ReLU's zeros."""
+    gen = torch.Generator(device=device).manual_seed(seed)
+    x = (2.0 * torch.randn(m, k, generator=gen, device=device)).bfloat16()
+    w = torch.randn(kproj.O, k, 1, 1, generator=gen, device=device) * (
+        2.0 / kproj.O) ** 0.5
+    b = (2.0 * torch.rand(kproj.O, generator=gen, device=device) - 1.0) / (
+        k ** 0.5)
+    return x, w, b
+
+
+def proj_bytes(m, k) -> int:
+    """The roofline's bytes: the map and the weight read once (bf16), the
+    f32 bias, the bf16 output written once."""
+    return 2 * m * k + 2 * kproj.O * k + 4 * kproj.O + 2 * m * kproj.O
+
+
+def exact_corr_proj(x, w, b):
+    """The kernel's function with exact sums: the bf16-rounded operands
+    multiplied and summed in f64 with the f32 bias, the ReLU, one rounding
+    to bf16; and beside it each output's f32 round-off bound (the comment
+    of PROJ_ATOL), f32."""
+    w2 = w.reshape(w.shape[0], -1).bfloat16().double()
+    x2 = x.bfloat16().double()
+    y = torch.addmm(b.double(), x2, w2.t())
+    bound = x2.abs() @ w2.abs().t() * (x.shape[1] * 2.0 ** -23)
+    return F.relu(y).bfloat16(), bound.float().clamp(min=PROJ_ATOL)
+
+
+def check_corr_proj(m, k, seed, timing=False):
+    """The convc1 kernel on the card against the exact result of its
+    function (exact_corr_proj): every bf16 output within one ulp (or
+    PROJ_ATOL of an output near 0), ReLU's zeros where the exact ones are
+    (or within PROJ_ATOL), nothing negative; the plain version (the eager
+    f32 chain under full f32) held to the same, and at most PROJ_ULP_SHARE
+    of the kernel's outputs one ulp off it; a second launch bit-equal; one
+    launch counted a call. With timing: the kernel's ms (L2 flushed before
+    each launch) beside its byte and operation bounds, the plain version's
+    ms, the f32 torch.addmm the eager chain calls (``library_ms``, its f32
+    operands made outside the timing) and a bf16 torch.mm of the same
+    operands (``bf16_mm_ms``), neither of which the port calls now."""
+    from bflow_tpu_torch.utils.precision import full_f32
+
+    x, w, b = proj_inputs(m, k, seed)
+    before = kproj.launches
+    got = kproj.corr_proj(x, w, b)
+    again = kproj.corr_proj(x, w, b)
+    torch.cuda.synchronize()
+    launches = kproj.launches - before
+    with full_f32():
+        want = kproj.corr_proj_plain(x, w, b)
+    exact, tol = exact_corr_proj(x, w, b)
+
+    def beyond(v, atol):  # ulps from the exact result where beyond atol
+        near = (v.float() - exact.float()).abs() <= atol
+        return bf16_ulps(v, exact).masked_fill(near, 0), near
+
+    ulps, near = beyond(got, tol)
+    plain_ulps, _ = beyond(want, tol)
+    zeros_apart = ((got == 0) != (exact == 0)) & ~near
+    vs_plain = bf16_ulps(got, want)
+    rec = {"m": m, "k": k,
+           "max_ulps_beyond_atol": int(ulps.max().item()),
+           "plain_max_ulps_beyond_atol": int(plain_ulps.max().item()),
+           # outputs more than one ulp and PROJ_ATOL from the exact result
+           "beyond_ulp_and_atol": int((beyond(got, PROJ_ATOL)[0] > 1).sum()),
+           "plain_beyond_ulp_and_atol": int(
+               (beyond(want, PROJ_ATOL)[0] > 1).sum()),
+           "max_tol": tol.max().item(),
+           "max_abs_err": (got.float() - exact.float()).abs().max().item(),
+           "share_off_by_one_ulp": (vs_plain == 1).float().mean().item(),
+           "max_ulps_vs_plain": int(vs_plain.max().item()),
+           "share_relu_zeros": (exact == 0).float().mean().item(),
+           "relu_zeros_apart": int(zeros_apart.sum().item()),
+           "min_output": got.float().min().item(),
+           "bitwise_repeatable": torch.equal(got, again),
+           "launches_per_call": launches / 2,
+           "ulp_share_bound": PROJ_ULP_SHARE, "atol": PROJ_ATOL}
+    rec["ok"] = (rec["max_ulps_beyond_atol"] <= 1
+                 and rec["plain_max_ulps_beyond_atol"] <= 1
+                 and rec["share_off_by_one_ulp"] <= PROJ_ULP_SHARE
+                 and rec["relu_zeros_apart"] == 0 and rec["min_output"] >= 0
+                 and rec["bitwise_repeatable"] and launches == 2)
+    if not timing:
+        return rec
+    del got, again, want, exact, tol, ulps, near, plain_ulps, zeros_apart
+    del vs_plain
+    xf = x.float()
+    wf = w.reshape(kproj.O, k).bfloat16().float().t()
+    wb = w.reshape(kproj.O, k).bfloat16().t()
+
+    def plain():
+        with full_f32():
+            return kproj.corr_proj_plain(x, w, b)
+
+    def library():
+        with full_f32():
+            return torch.addmm(b, xf, wf)
+
+    nbytes = proj_bytes(m, k)
+    flops = 2 * m * k * kproj.O
+    rec.update(bytes=nbytes, flops=flops,
+               ms=time_ms(lambda: kproj.corr_proj(x, w, b)),
+               plain_ms=time_ms(plain), library_ms=time_ms(library),
+               bf16_mm_ms=time_ms(lambda: torch.mm(x, wb)),
+               bound_ms=nbytes / HBM_BYTES_PER_S * 1e3,
+               flops_bound_ms=flops / BF16_FLOPS * 1e3, bound_by="bytes")
+    rec["roofline_share"] = rec["bound_ms"] / rec["ms"]
+    return rec
+
+
+def proj_phase(seed: int, timing: bool = True):
+    """Phase 3e: the convc1 kernel at each map width of PROJ_K and each
+    row count of PROJ_M, timed at DSEC E_I's width for the three model
+    shapes. Returns the records and the kernel's device ms a B=16 request
+    (12 launches)."""
+    recs, request_ms = [], None
+    for i, (k, what) in enumerate(PROJ_K):
+        for j, m in enumerate(PROJ_M):
+            rec = check_corr_proj(m, k, seed + 4 * i + j, timing=timing and (
+                k == PROJ_TIMED_K and m != PROJ_M[-1]))
+            rec["width"] = what
+            emit("kernel", name=kproj.NAME, **rec)
+            check(rec["ok"], f"convc1 kernel disagrees: {rec}")
+            recs.append(rec)
+            if "ms" in rec and m == PROJ_M[0]:
+                request_ms = ITERS * rec["ms"]
+    return recs, request_ms
+
+
+def proj_summary(recs, request_ms, counts, eval_counts):
+    """The convc1 kernel's entry of the kernels line: DSEC E_I at B=16
+    (M = 76,800, K = 891) and the request's 12 launches; launches in phase
+    4's forwards and phase 7d's val run."""
+    top = next(r for r in recs if r["m"] == PROJ_M[0]
+               and r["k"] == PROJ_TIMED_K)
+    return {"name": kproj.NAME, "route": "cuda",
+            "source": "bflow_tpu_torch/csrc/corr_proj.cu",
+            "replaces": "none: XLA runs the JAX package's fused convc1 "
+                        "einsum (bflow_tpu/models/update.py)",
+            "launches": counts[kproj.NAME],
+            "launches_eval": eval_counts[kproj.NAME],
+            "max_ulps_beyond_atol": max(r["max_ulps_beyond_atol"]
+                                        for r in recs),
+            **{k: top.get(k) for k in ("ms", "plain_ms", "library_ms",
+                                       "bf16_mm_ms", "bound_ms",
+                                       "flops_bound_ms", "roofline_share")},
+            "bound_by": "bytes",
+            "per": "launch, M=76,800 (B=16 at 60x80), K=891",
+            "request_ms": request_ms,
+            "request": "the 12 launches of a B=16 bf16 DSEC forward"}
 
 
 # ---------------------------------------------------------------------------
@@ -3042,6 +3243,8 @@ def main() -> int:
         per_conv[row["kernel"]].append(rec)
     # 3d. the norm kernel at the bf16 DSEC cell's encoder shapes
     norm_recs, norm_request_ms = norm_phase(args.seed)
+    # 3e. the convc1 kernel at the three map widths and the model's rows
+    proj_recs, proj_request_ms = proj_phase(args.seed)
 
     # 4. the flagship forward through the kernel
     cfg = bt.flagship_config()
@@ -3404,7 +3607,8 @@ def main() -> int:
                     per_conv[kstem.NAME], opt_counts, eval_opt_counts),
         conv_summary(kconv.NAME, "bflow_tpu/ops/pallas/conv3x3.py:69",
                      per_conv[kconv.NAME], opt_counts, eval_opt_counts),
-        norm_summary(norm_recs, norm_request_ms, counts, eval_counts)]
+        norm_summary(norm_recs, norm_request_ms, counts, eval_counts),
+        proj_summary(proj_recs, proj_request_ms, counts, eval_counts)]
     print(json.dumps({"kernels": summary}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,
