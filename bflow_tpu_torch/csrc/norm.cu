@@ -1,6 +1,6 @@
 // Instance norm and eval-mode BatchNorm over bf16 activations, with an
-// optional fused ReLU, for Hopper (sm_90a): the norms of the encoders in the
-// bf16 fast mode.
+// optional fused ReLU and an optional residual epilogue, for Hopper (sm_90a):
+// the norms of the encoders in the bf16 fast mode.
 //
 // Replaces no TPU kernel. The JAX package leaves its norm
 // (bflow_tpu/models/extractor.py:Norm) to XLA, which fuses the f32 cast, the
@@ -15,7 +15,9 @@
 // counts: the instance norm reads the bf16 input twice (statistics, then
 // normalise) and writes the bf16 output once, 6 bytes an element; the
 // BatchNorm takes the running statistics, so it reads once and writes once,
-// 4 bytes an element.
+// 4 bytes an element. With a residual, 2 bytes more for its read: the
+// epilogue saves the bf16 add and the ReLU that followed the norm, 10 bytes
+// an element.
 //
 // Design:
 // - Pass 1, statistics (instance norm only): a grid over (unit, chunk),
@@ -32,6 +34,12 @@
 //   BatchNorm: (x - mean) * (w * rsqrt(var + eps)) + b from the running
 //   statistics, in f32. Every step is a rounded f32 operation (no
 //   contraction into an fma), as PyTorch's f32 ops take them one by one.
+// - The residual epilogue (a residual block's relu(x + norm(z)), the norm's
+//   ReLU included): the normalised value is rounded to bf16 as without it,
+//   then x (bf16, in z's layout) is added in f32 and the sum rounded once
+//   more, then the ReLU: bf16(f32(x) + f32(y)) is PyTorch's bf16 add, and the
+//   ReLU commutes with the rounding, so the output is the eager chain's bit
+//   for bit.
 // - Pass 2 runs its blocks in the reverse order of pass 1's, so the first
 //   ones read what pass 1 read last while it is still in the 50 MB L2.
 // - Two layouts, the output in the input's: channels-last (n, h*w, c), where
@@ -130,6 +138,14 @@ __device__ __forceinline__ float normalise(float x, float mean, float scale,
   return (relu && y < 0.f) ? 0.f : y;
 }
 
+// relu(bf16(y) + r) in f32, before its rounding: y rounded as the norm's
+// output, then PyTorch's bf16 add (f32 sum, one rounding at the store) and
+// its ReLU (clamp_min: NaN passes)
+__device__ __forceinline__ float residual_relu(float y, float r) {
+  const float s = __fadd_rn(__bfloat162float(__float2bfloat16_rn(y)), r);
+  return s != s ? s : fmaxf(s, 0.f);
+}
+
 // ---------------------------------------------------------------------------
 // channels-last: x (n, rows, c) dense, c a multiple of 8. The block has
 // blockDim.x = groups * step threads: thread t reads channels
@@ -187,9 +203,10 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
-template <bool kBatch>
+template <bool kBatch, bool kRes>
 __global__ void __launch_bounds__(kThreads)
     norm_apply_rows_kernel(const bf16* __restrict__ x, bf16* __restrict__ y,
+                           const bf16* __restrict__ res,
                            const float* __restrict__ partial,
                            const float* __restrict__ mean,
                            const float* __restrict__ var,
@@ -220,26 +237,35 @@ __global__ void __launch_bounds__(kThreads)
   const int64_t r1 = min64(rows, (int64_t)(chunk + 1) * rpc);
   const int64_t base = n * rows * c + g * kVec;
   const bf16* xs = x + base;
+  const bf16* rs = kRes ? res + base : nullptr;
   bf16* ys = y + base;
   int64_t row = (int64_t)chunk * rpc + r;
   for (; row + (kUnroll - 1) * step < r1; row += kUnroll * step) {
-    float f[kUnroll][kVec];
+    float f[kUnroll][kVec], q[kRes ? kUnroll : 1][kVec];
 #pragma unroll
-    for (int u = 0; u < kUnroll; ++u) load<kVec>(xs + (row + u * step) * c, f[u]);
+    for (int u = 0; u < kUnroll; ++u) {
+      load<kVec>(xs + (row + u * step) * c, f[u]);
+      if (kRes) load<kVec>(rs + (row + u * step) * c, q[kRes ? u : 0]);
+    }
 #pragma unroll
     for (int u = 0; u < kUnroll; ++u) {
 #pragma unroll
-      for (int i = 0; i < kVec; ++i)
+      for (int i = 0; i < kVec; ++i) {
         f[u][i] = normalise<kBatch>(f[u][i], m[i], sc[i], sh[i], relu);
+        if (kRes) f[u][i] = residual_relu(f[u][i], q[kRes ? u : 0][i]);
+      }
       store<kVec>(ys + (row + u * step) * c, f[u]);
     }
   }
   for (; row < r1; row += step) {
-    float f[kVec];
+    float f[kVec], q[kVec];
     load<kVec>(xs + row * c, f);
+    if (kRes) load<kVec>(rs + row * c, q);
 #pragma unroll
-    for (int i = 0; i < kVec; ++i)
+    for (int i = 0; i < kVec; ++i) {
       f[i] = normalise<kBatch>(f[i], m[i], sc[i], sh[i], relu);
+      if (kRes) f[i] = residual_relu(f[i], q[i]);
+    }
     store<kVec>(ys + row * c, f);
   }
 }
@@ -311,9 +337,10 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
-template <int V, bool kBatch>
+template <int V, bool kBatch, bool kRes>
 __global__ void __launch_bounds__(kThreads)
     norm_apply_planes_kernel(const bf16* __restrict__ x, bf16* __restrict__ y,
+                             const bf16* __restrict__ res,
                              const float* __restrict__ partial,
                              const float* __restrict__ mean,
                              const float* __restrict__ var,
@@ -332,27 +359,36 @@ __global__ void __launch_bounds__(kThreads)
   const Coef k = coef;
   const int64_t e = min64(hw, (int64_t)(chunk + 1) * len);
   const bf16* xp = x + plane * hw;
+  const bf16* rp = kRes ? res + plane * hw : nullptr;
   bf16* yp = y + plane * hw;
   const int stride = blockDim.x * V;
   int64_t i = (int64_t)chunk * len + threadIdx.x * V;
   for (; i + (kUnroll - 1) * stride < e; i += kUnroll * stride) {
-    float f[kUnroll][V];
+    float f[kUnroll][V], q[kRes ? kUnroll : 1][V];
 #pragma unroll
-    for (int u = 0; u < kUnroll; ++u) load<V>(xp + i + u * stride, f[u]);
+    for (int u = 0; u < kUnroll; ++u) {
+      load<V>(xp + i + u * stride, f[u]);
+      if (kRes) load<V>(rp + i + u * stride, q[kRes ? u : 0]);
+    }
 #pragma unroll
     for (int u = 0; u < kUnroll; ++u) {
 #pragma unroll
-      for (int j = 0; j < V; ++j)
+      for (int j = 0; j < V; ++j) {
         f[u][j] = normalise<kBatch>(f[u][j], k.mean, k.scale, k.shift, relu);
+        if (kRes) f[u][j] = residual_relu(f[u][j], q[kRes ? u : 0][j]);
+      }
       store<V>(yp + i + u * stride, f[u]);
     }
   }
   for (; i < e; i += stride) {
-    float f[V];
+    float f[V], q[V];
     load<V>(xp + i, f);
+    if (kRes) load<V>(rp + i, q);
 #pragma unroll
-    for (int j = 0; j < V; ++j)
+    for (int j = 0; j < V; ++j) {
       f[j] = normalise<kBatch>(f[j], k.mean, k.scale, k.shift, relu);
+      if (kRes) f[j] = residual_relu(f[j], q[j]);
+    }
     store<V>(yp + i, f);
   }
 }
@@ -362,11 +398,35 @@ __global__ void __launch_bounds__(kThreads)
 
 bool aligned16(const void* p) { return reinterpret_cast<uintptr_t>(p) % 16 == 0; }
 
+// pass 2 over the blocks, with the residual where res is not null
+template <bool kBatch, bool kRes>
+cudaError_t apply(const bf16* x, bf16* y, const bf16* res,
+                  const float* part, const float* mean, const float* var,
+                  const float* weight, const float* bias, float eps, int c,
+                  int hw, int channels_last, int blocks, int threads,
+                  int span, int chunks, bool vec, int relu,
+                  cudaStream_t stream) {
+  if (channels_last)
+    norm_apply_rows_kernel<kBatch, kRes><<<blocks, threads, 0, stream>>>(
+        x, y, res, part, mean, var, weight, bias, eps, hw, c, span, chunks,
+        relu);
+  else if (vec)
+    norm_apply_planes_kernel<kVec, kBatch, kRes><<<blocks, kThreads, 0,
+                                                   stream>>>(
+        x, y, res, part, mean, var, weight, bias, eps, c, hw, span, chunks,
+        relu);
+  else
+    norm_apply_planes_kernel<1, kBatch, kRes><<<blocks, kThreads, 0, stream>>>(
+        x, y, res, part, mean, var, weight, bias, eps, c, hw, span, chunks,
+        relu);
+  return cudaGetLastError();
+}
+
 template <bool kBatch>
-int launch(const void* x, void* y, void* partial, const float* mean,
-           const float* var, const float* weight, const float* bias,
-           float eps, int n, int c, int hw, int channels_last, int chunks,
-           int relu, cudaStream_t stream) {
+int launch(const void* x, void* y, const void* res, void* partial,
+           const float* mean, const float* var, const float* weight,
+           const float* bias, float eps, int n, int c, int hw,
+           int channels_last, int chunks, int relu, cudaStream_t stream) {
   if (n < 0 || hw < 0 || c < kVec || c > kMaxC || c % kVec || chunks < 1)
     return (int)cudaErrorInvalidValue;
   if (n == 0 || hw == 0) return (int)cudaSuccess;
@@ -374,43 +434,47 @@ int launch(const void* x, void* y, void* partial, const float* mean,
   if (units * chunks > INT_MAX) return (int)cudaErrorInvalidValue;
   const int blocks = (int)(units * chunks);
   const bf16* xb = static_cast<const bf16*>(x);
+  const bf16* rb = static_cast<const bf16*>(res);
   bf16* yb = static_cast<bf16*>(y);
   float* part = static_cast<float*>(partial);
+  int threads = kThreads, span;
+  bool vec = false;
   if (channels_last) {
-    if (!aligned16(x) || !aligned16(y)) return (int)cudaErrorMisalignedAddress;
-    const int groups = c / kVec, threads = groups * (kThreads / groups);
-    const int rpc = (int)(((int64_t)hw + chunks - 1) / chunks);
-    if (!kBatch) {
+    if (!aligned16(x) || !aligned16(y) || (res && !aligned16(res)))
+      return (int)cudaErrorMisalignedAddress;
+    const int groups = c / kVec;
+    threads = groups * (kThreads / groups);
+    span = (int)(((int64_t)hw + chunks - 1) / chunks);  // rows a chunk
+    if (!kBatch)
       norm_stats_rows_kernel<<<blocks, threads, 0, stream>>>(xb, part, hw, c,
-                                                              rpc, chunks);
-      const cudaError_t err = cudaGetLastError();
-      if (err != cudaSuccess) return (int)err;
+                                                              span, chunks);
+  } else {
+    vec = hw % kVec == 0 && aligned16(x) && aligned16(y) &&
+          (!res || aligned16(res));
+    const int v = vec ? kVec : 1;
+    span = (int)(((int64_t)hw + (int64_t)chunks * v - 1) /
+                 ((int64_t)chunks * v) * v);  // elements a chunk
+    if (!kBatch) {
+      if (vec)
+        norm_stats_planes_kernel<kVec><<<blocks, kThreads, 0, stream>>>(
+            xb, part, c, hw, span, chunks);
+      else
+        norm_stats_planes_kernel<1><<<blocks, kThreads, 0, stream>>>(
+            xb, part, c, hw, span, chunks);
     }
-    norm_apply_rows_kernel<kBatch><<<blocks, threads, 0, stream>>>(
-        xb, yb, part, mean, var, weight, bias, eps, hw, c, rpc, chunks, relu);
-    return (int)cudaGetLastError();
   }
-  const bool vec = hw % kVec == 0 && aligned16(x) && aligned16(y);
-  const int v = vec ? kVec : 1;
-  const int len = (int)(((int64_t)hw + (int64_t)chunks * v - 1) /
-                        ((int64_t)chunks * v) * v);
   if (!kBatch) {
-    if (vec)
-      norm_stats_planes_kernel<kVec><<<blocks, kThreads, 0, stream>>>(
-          xb, part, c, hw, len, chunks);
-    else
-      norm_stats_planes_kernel<1><<<blocks, kThreads, 0, stream>>>(
-          xb, part, c, hw, len, chunks);
     const cudaError_t err = cudaGetLastError();
     if (err != cudaSuccess) return (int)err;
   }
-  if (vec)
-    norm_apply_planes_kernel<kVec, kBatch><<<blocks, kThreads, 0, stream>>>(
-        xb, yb, part, mean, var, weight, bias, eps, c, hw, len, chunks, relu);
-  else
-    norm_apply_planes_kernel<1, kBatch><<<blocks, kThreads, 0, stream>>>(
-        xb, yb, part, mean, var, weight, bias, eps, c, hw, len, chunks, relu);
-  return (int)cudaGetLastError();
+  return (int)(res ? apply<kBatch, true>(xb, yb, rb, part, mean, var, weight,
+                                          bias, eps, c, hw, channels_last,
+                                          blocks, threads, span, chunks, vec,
+                                          relu, stream)
+                   : apply<kBatch, false>(xb, yb, nullptr, part, mean, var,
+                                          weight, bias, eps, c, hw,
+                                          channels_last, blocks, threads,
+                                          span, chunks, vec, relu, stream));
 }
 
 }  // namespace
@@ -420,24 +484,26 @@ extern "C" {
 // x, y: n samples of c channels over hw = h * w pixels, bf16, dense in one
 // layout: channels-last ((n, hw, c), channels_last = 1, 16-byte aligned) or
 // NCHW ((n, c, hw), channels_last = 0); y is written in x's layout. c is a
-// multiple of 8 up to 1,024. partial: (n, chunks, 2, c) f32 scratch; chunks
-// splits each unit (a sample channels-last, a plane in NCHW) over that many
-// blocks. relu: clamp at 0 before the rounding. Returns a cudaError_t.
-int norm_instance_bf16(const void* x, void* y, void* partial, int n, int c,
-                       int hw, int channels_last, int chunks, int relu,
-                       void* stream) {
-  return launch<false>(x, y, partial, nullptr, nullptr, nullptr, nullptr, 0.f,
-                       n, c, hw, channels_last, chunks, relu,
+// multiple of 8 up to 1,024. res: null, or a bf16 tensor of x's shape and
+// layout (16-byte aligned channels-last): then y = relu(bf16(norm) + res),
+// rounded once more. partial: (n, chunks, 2, c) f32 scratch; chunks splits
+// each unit (a sample channels-last, a plane in NCHW) over that many blocks.
+// relu: clamp at 0 before the rounding. Returns a cudaError_t.
+int norm_instance_bf16(const void* x, void* y, const void* res, void* partial,
+                       int n, int c, int hw, int channels_last, int chunks,
+                       int relu, void* stream) {
+  return launch<false>(x, y, res, partial, nullptr, nullptr, nullptr, nullptr,
+                       0.f, n, c, hw, channels_last, chunks, relu,
                        static_cast<cudaStream_t>(stream));
 }
 
 // The same with BatchNorm's running statistics: mean, var, weight, bias (c,)
 // f32 and eps; no scratch, one pass.
-int norm_batch_bf16(const void* x, void* y, const void* mean, const void* var,
-                    const void* weight, const void* bias, float eps, int n,
-                    int c, int hw, int channels_last, int chunks, int relu,
-                    void* stream) {
-  return launch<true>(x, y, nullptr, static_cast<const float*>(mean),
+int norm_batch_bf16(const void* x, void* y, const void* res, const void* mean,
+                    const void* var, const void* weight, const void* bias,
+                    float eps, int n, int c, int hw, int channels_last,
+                    int chunks, int relu, void* stream) {
+  return launch<true>(x, y, res, nullptr, static_cast<const float*>(mean),
                       static_cast<const float*>(var),
                       static_cast<const float*>(weight),
                       static_cast<const float*>(bias), eps, n, c, hw,

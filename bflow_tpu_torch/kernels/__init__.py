@@ -15,6 +15,7 @@ KERNELS = {
     stem_conv.NAME: (stem_conv, "launches"),
     conv3x3.NAME: (conv3x3, "launches"),
     norm.NAME: (norm, "launches"),
+    norm.RESIDUAL_NAME: (norm, "residual_launches"),
     corr_proj.NAME: (corr_proj, "launches"),
 }
 

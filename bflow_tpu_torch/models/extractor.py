@@ -10,10 +10,12 @@ the reference checkpoint's (``conv1``, ``norm1``, ``layer2.0.downsample.0``
 Precision follows the JAX modules' ``dtype``: parameters stay f32; with a
 compute dtype, each conv casts its input, weight and bias to it at use.
 Norm statistics are taken in f32 and the result is cast back. Each norm
-takes ``relu``, the ReLU that follows it in the JAX modules; in bf16
-inference the instance norm and the eval-mode BatchNorm, ReLU included, are
-one CUDA kernel (kernels/norm.py), chosen by what the input shows: a bf16
-CUDA tensor in a call that autograd would not record.
+takes ``relu``, the ReLU that follows it in the JAX modules, and
+``residual``, the shortcut of a residual block's relu(x + y) after it; in
+bf16 inference the instance norm and the eval-mode BatchNorm, ReLU and
+residual epilogue included, are one CUDA kernel (kernels/norm.py), chosen
+by what the input shows: a bf16 CUDA tensor in a call that autograd would
+not record (a shortcut in another layout is added after the kernel).
 
 The opt-in conv kernels follow the JAX package's dispatch
 (bflow_tpu/models/extractor.py:Conv3x3, StemConv): under ``pallas_stem``
@@ -121,13 +123,17 @@ class Conv1x1(Conv2d):
         return super().forward(x)
 
 
-class GroupNorm(nn.GroupNorm):
-    """GroupNorm in f32, cast back, then the ReLU where ``relu``.
-    F.group_norm answers NCHW-contiguous; a channels-last input (the conv
-    kernels' output) gets its layout back in the cast, so the next conv
-    reads it in place."""
+Residual = Optional[torch.Tensor]
 
-    def forward(self, x: torch.Tensor, relu: bool = False) -> torch.Tensor:
+
+class GroupNorm(nn.GroupNorm):
+    """GroupNorm in f32, cast back, then the ReLU where ``relu`` and
+    relu(residual + y) where there is a residual. F.group_norm answers
+    NCHW-contiguous; a channels-last input (the conv kernels' output) gets
+    its layout back in the cast, so the next conv reads it in place."""
+
+    def forward(self, x: torch.Tensor, relu: bool = False,
+                residual: Residual = None) -> torch.Tensor:
         y = F.group_norm(x.float(), self.num_groups, self.weight, self.bias,
                          self.eps)
         if not x.is_contiguous() and x.is_contiguous(
@@ -135,7 +141,7 @@ class GroupNorm(nn.GroupNorm):
             y = y.to(x.dtype, memory_format=torch.channels_last)
         else:
             y = y.to(x.dtype)
-        return F.relu(y) if relu else y
+        return knorm.epilogue(y, relu, residual)
 
 
 class BatchNorm(nn.BatchNorm2d):
@@ -154,16 +160,18 @@ class BatchNorm(nn.BatchNorm2d):
     reaches the other ranks' samples through the all-reduce's backward.
     (nn.SyncBatchNorm would also move toward the unbiased variance.)
 
-    ``relu`` applies the ReLU after the norm. Eval mode in bf16 inference
-    is the norm kernel's (kernels/norm.py: knorm.engages)."""
+    ``relu`` applies the ReLU after the norm, ``residual`` then
+    relu(residual + y). Eval mode in bf16 inference is the norm kernel's
+    (kernels/norm.py: knorm.engages)."""
 
-    def forward(self, x: torch.Tensor, relu: bool = False) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, relu: bool = False,
+                residual: Residual = None) -> torch.Tensor:
         if not self.training:
             norm = (knorm.batch_norm
-                    if knorm.engages(x, self.weight, self.bias)
+                    if knorm.engages(x, self.weight, self.bias, residual)
                     else knorm.batch_norm_plain)
             return norm(x, self.running_mean, self.running_var, self.weight,
-                        self.bias, self.eps, relu)
+                        self.bias, self.eps, relu, residual)
         xf = x.float()
         if is_initialized():
             y = self._global_batch(xf).to(x.dtype)
@@ -176,7 +184,7 @@ class BatchNorm(nn.BatchNorm2d):
                 self.num_batches_tracked.add_(1)
             y = F.batch_norm(xf, None, None, self.weight, self.bias, True,
                              0.0, self.eps).to(x.dtype)
-        return F.relu(y) if relu else y
+        return knorm.epilogue(y, relu, residual)
 
     def _global_batch(self, xf: torch.Tensor) -> torch.Tensor:
         c = xf.shape[1]
@@ -198,29 +206,33 @@ class BatchNorm(nn.BatchNorm2d):
 
 class InstanceNorm(nn.Module):
     """InstanceNorm2d with torch defaults (no affine, no running stats),
-    then the ReLU where ``relu``.
+    then the ReLU where ``relu`` and relu(residual + y) where there is a
+    residual.
 
     f32 inputs take the two-pass mean/variance; other inputs take the JAX
     fast mode's single pass, var = max(E[x^2] - E[x]^2, 0) in f32: the norm
     kernel where knorm.engages (bf16 inference on the card), else its plain
     version."""
 
-    def forward(self, x: torch.Tensor, relu: bool = False) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, relu: bool = False,
+                residual: Residual = None) -> torch.Tensor:
         if x.dtype != torch.float32:
-            norm = (knorm.instance_norm if knorm.engages(x)
+            norm = (knorm.instance_norm if knorm.engages(x, residual)
                     else knorm.instance_norm_plain)
-            return norm(x, relu)
+            return norm(x, relu, residual)
         m1 = x.mean(dim=(2, 3), keepdim=True)
         var = (x - m1).square().mean(dim=(2, 3), keepdim=True)
-        y = (x - m1) * torch.rsqrt(var + 1e-5)
-        return F.relu(y) if relu else y
+        return knorm.epilogue((x - m1) * torch.rsqrt(var + 1e-5), relu,
+                              residual)
 
 
 class NoNorm(nn.Identity):
-    """No norm: x, then the ReLU where ``relu``."""
+    """No norm: x, then the ReLU where ``relu`` and relu(residual + x)
+    where there is a residual."""
 
-    def forward(self, x: torch.Tensor, relu: bool = False) -> torch.Tensor:
-        return F.relu(x) if relu else x
+    def forward(self, x: torch.Tensor, relu: bool = False,
+                residual: Residual = None) -> torch.Tensor:
+        return knorm.epilogue(x, relu, residual)
 
 
 def make_norm(kind: str, channels: int, num_groups: int) -> nn.Module:
@@ -258,11 +270,13 @@ class ResidualBlock(nn.Module):
             )
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        y = self.norm1(self.conv1(x), relu=True)
-        y = self.norm2(self.conv2(y), relu=True)
+        """relu(shortcut + relu(norm2(conv2(...)))): the epilogue is
+        norm2's, so in bf16 inference the norm kernel reads the shortcut
+        and writes the block's output."""
+        y = self.conv2(self.norm1(self.conv1(x), relu=True))
         if self.downsample is not None:
             x = self.downsample(x)
-        return F.relu(x + y)
+        return self.norm2(y, relu=True, residual=x)
 
 
 class BasicEncoder(nn.Module):

@@ -1016,17 +1016,31 @@ def flagship_convs(cfg, n=1, h=H, w=W, iters=ITERS):
     return list(rows.values())
 
 
-def norm_launches(cfg, train: bool = False) -> int:
-    """Norm kernel launches in one forward: each bf16 encoder's 15 instance
-    norms or eval-mode BatchNorms (the stem's, four a stage and the
-    downsample's in stages 2 and 3), none in f32 and none in a training
-    forward (autograd records the norms; train-mode BatchNorm takes the
-    batch's statistics)."""
+def norm_encoders(cfg, train: bool = False) -> int:
+    """Encoders whose norms go through the norm kernel in one forward: each
+    bf16 encoder with instance norms or eval-mode BatchNorms, none in f32
+    and none in a training forward (autograd records the norms; train-mode
+    BatchNorm takes the batch's statistics)."""
     if train or cfg.compute_dtype != "bfloat16":
         return 0
     kinds = ([cfg.feature_norm] * (cfg.use_events + cfg.use_images)
              + [cfg.context_norm])
-    return 15 * sum(k in ("instance", "batch") for k in kinds)
+    return sum(k in ("instance", "batch") for k in kinds)
+
+
+def norm_launches(cfg, train: bool = False) -> int:
+    """Norm kernel launches in one forward: 15 an encoder of
+    norm_encoders (the stem's, four a stage and the downsample's in stages
+    2 and 3)."""
+    return 15 * norm_encoders(cfg, train)
+
+
+def residual_launches(cfg, train: bool = False) -> int:
+    """Of those, the norms that take their residual block's epilogue: the
+    second norm of each of an encoder's six blocks (the shortcut in the
+    layout of the norm's input: the conv kernels and the 1x1 downsample
+    hand over the same)."""
+    return 6 * norm_encoders(cfg, train)
 
 
 def proj_launches(cfg, n, h, w, iters, train=False) -> int:
@@ -1049,6 +1063,7 @@ def expected_launches(cfg, n=1, h=H, w=W, iters=ITERS, train=False):
         if row["kernel"]:
             want[row["kernel"]] += row["per_forward"]
     want[knorm.NAME] = norm_launches(cfg, train)
+    want[knorm.RESIDUAL_NAME] = residual_launches(cfg, train)
     want[kproj.NAME] = proj_launches(cfg, n, h, w, iters, train)
     # a level for the all-level kernel (pallas_q8's int8 levels too): one
     # launch per iteration
@@ -1339,14 +1354,14 @@ def norm_inputs(kind, n, c, h, w, channels_last, seed, device="cuda"):
                0.2 * draw())
 
 
-def norm_call(kind, x, stats, relu, plain=False):
-    """The kernel (or its plain version) on x as a function of no
-    arguments."""
+def norm_call(kind, x, stats, relu, plain=False, residual=None):
+    """The kernel (or its plain version) on x, with the residual epilogue
+    where there is a residual, as a function of no arguments."""
     if kind == "instance":
         fn = knorm.instance_norm_plain if plain else knorm.instance_norm
-        return lambda: fn(x, relu)
+        return lambda: fn(x, relu, residual)
     fn = knorm.batch_norm_plain if plain else knorm.batch_norm
-    return lambda: fn(x, *stats, 1e-5, relu)
+    return lambda: fn(x, *stats, 1e-5, relu, residual)
 
 
 def norm_bytes(kind, x) -> dict:
@@ -1419,13 +1434,70 @@ def check_norm(kind, n, c, h, w, channels_last, seed, relu=True,
     return rec
 
 
+def check_norm_residual(kind, n, c, h, w, channels_last, seed,
+                        timing=False):
+    """The kernel with a residual block's epilogue (ReLU fused, then
+    relu(x + y)) against the eager chain it replaces, the kernel without a
+    residual followed by PyTorch's bf16 add and ReLU: equal to the last
+    bit; a second launch bit-equal; the output in the input's layout; one
+    launch, and one residual launch, counted a call. With timing: its ms
+    (L2 flushed) beside its byte bound (z read twice for an instance norm,
+    once for a BatchNorm, x read once, the output written once), the eager
+    chain's ms (what the model ran before) and the plain version's."""
+    z, stats = norm_inputs(kind, n, c, h, w, channels_last, seed)
+    x, _ = norm_inputs("instance", n, c, h, w, channels_last, seed + 1)
+    before = (knorm.launches, knorm.residual_launches)
+    call = norm_call(kind, z, stats, True, residual=x)
+    got = call()
+    again = call()
+    torch.cuda.synchronize()
+    launches = (knorm.launches - before[0],
+                knorm.residual_launches - before[1])
+    unfused = norm_call(kind, z, stats, True)
+
+    def eager():
+        return F.relu(x + unfused())
+
+    want = eager()
+    layout = (torch.channels_last if channels_last
+              else torch.contiguous_format)
+    bits = got.contiguous().view(torch.int16) != want.contiguous().view(
+        torch.int16)
+    rec = {"kind": kind, "shape": [n, c, h, w],
+           "layout": "channels_last" if channels_last else "nchw",
+           "residual": True, "equal": torch.equal(got, want),
+           "bits_differing": int(bits.sum().item()),
+           "bitwise_repeatable": torch.equal(got, again),
+           "layout_kept": got.is_contiguous(memory_format=layout),
+           "launches_per_call": launches[0] / 2,
+           "residual_launches_per_call": launches[1] / 2}
+    rec["ok"] = (rec["equal"] and rec["bitwise_repeatable"]
+                 and rec["layout_kept"] and launches == (2, 2))
+    if not timing:
+        return rec
+    del got, again, want, bits
+    reads = 2 if kind == "instance" else 1
+    nbytes = (2 * reads + 4) * z.numel()
+    rec.update(
+        bytes=nbytes, bytes_per_element=nbytes / z.numel(),
+        ms=time_ms(call),
+        eager_ms=time_ms(eager),
+        plain_ms=time_ms(norm_call(kind, z, stats, True, plain=True,
+                                   residual=x)),
+        bound_ms=nbytes / HBM_BYTES_PER_S * 1e3, bound_by="bytes")
+    rec["roofline_share"] = rec["bound_ms"] / rec["ms"]
+    return rec
+
+
 def norm_phase(seed: int, timing: bool = True):
     """Phase 3d: the norm kernel at each encoder shape of the bf16 DSEC
     cell (B=16: fnet_ev's 80 samples, fnet_img's 32, cnet's 16 through
     BatchNorm), channels-last as the conv kernels hand it over, ReLU fused,
     timed; then NCHW (the 1x1 downsample's F.conv2d may answer in it) at
-    each stage with N=2, ReLU off. Returns the records and the kernel's
-    device ms a request (each stage's time x 5 norms, per encoder)."""
+    each stage with N=2, ReLU off; then the residual epilogue at every
+    encoder shape, channels-last, timed at fnet_ev's stage 1, and in NCHW
+    at N=2. Returns the records and the kernel's device ms a request (each
+    stage's time x 5 norms, per encoder, without the residual)."""
     recs, request_ms = [], 0.0
     for i, (enc, n, kind) in enumerate(NORM_ENCODERS):
         for j, (c, h, w) in enumerate(NORM_STAGES):
@@ -1444,6 +1516,23 @@ def norm_phase(seed: int, timing: bool = True):
             emit("kernel", name=knorm.NAME, **rec)
             check(rec["ok"], f"norm kernel disagrees (NCHW): {rec}")
             recs.append(rec)
+    for i, (enc, n, kind) in enumerate(NORM_ENCODERS):
+        for j, (c, h, w) in enumerate(NORM_STAGES):
+            rec = check_norm_residual(kind, n, c, h, w, True,
+                                      seed + 40 + 3 * i + j,
+                                      timing=timing and i == j == 0)
+            rec["encoder"] = enc
+            emit("kernel", name=knorm.RESIDUAL_NAME, **rec)
+            check(rec["ok"], f"norm kernel's residual epilogue differs from "
+                             f"the eager chain: {rec}")
+            recs.append(rec)
+    for j, (c, h, w) in enumerate(NORM_STAGES):
+        for kind in ("instance", "batch"):
+            rec = check_norm_residual(kind, 2, c, h, w, False, seed + 60 + j)
+            emit("kernel", name=knorm.RESIDUAL_NAME, **rec)
+            check(rec["ok"], f"norm kernel's residual epilogue differs from "
+                             f"the eager chain (NCHW): {rec}")
+            recs.append(rec)
     return recs, request_ms
 
 
@@ -1452,7 +1541,10 @@ def norm_summary(recs, request_ms, counts, eval_counts):
     norm of fnet_ev (N=80, 64x240x320, channels-last) and the request's
     total at B=16; launches in phase 4's forwards and phase 7d's val run."""
     top = next(r for r in recs if r.get("encoder") == "fnet_ev"
-               and r["shape"][1] == NORM_STAGES[0][0])
+               and r["shape"][1] == NORM_STAGES[0][0]
+               and not r.get("residual"))
+    res = next(r for r in recs if r.get("encoder") == "fnet_ev"
+               and r["shape"][1] == NORM_STAGES[0][0] and r.get("residual"))
     return {"name": knorm.NAME, "route": "cuda",
             "source": "bflow_tpu_torch/csrc/norm.cu",
             "replaces": "none: XLA fuses the JAX package's norm "
@@ -1460,7 +1552,8 @@ def norm_summary(recs, request_ms, counts, eval_counts):
             "launches": counts[knorm.NAME],
             "launches_eval": eval_counts[knorm.NAME],
             "max_ulps_beyond_atol": max(r["max_ulps_beyond_atol"]
-                                        for r in recs),
+                                        for r in recs
+                                        if not r.get("residual")),
             **{k: top[k] for k in ("ms", "plain_ms", "library_ms",
                                    "bound_ms", "bound_two_pass_ms",
                                    "roofline_share",
@@ -1469,7 +1562,16 @@ def norm_summary(recs, request_ms, counts, eval_counts):
             "per": "fnet_ev's stage-1 norm, N=80 at 64x240x320, "
                    "channels-last, ReLU fused",
             "request_ms": request_ms,
-            "request": "the 45 norms of a B=16 bf16 DSEC forward"}
+            "request": "the 45 norms of a B=16 bf16 DSEC forward",
+            "residual": {
+                "launches": counts[knorm.RESIDUAL_NAME],
+                "launches_eval": eval_counts[knorm.RESIDUAL_NAME],
+                "equal_to_eager": all(r["equal"] for r in recs
+                                      if r.get("residual")),
+                **{k: res[k] for k in ("ms", "eager_ms", "plain_ms",
+                                       "bound_ms", "bytes_per_element",
+                                       "roofline_share")},
+                "per": "fnet_ev's stage-1 norm with the block's epilogue"}}
 
 
 # ---------------------------------------------------------------------------

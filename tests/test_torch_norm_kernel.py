@@ -4,10 +4,14 @@ csrc/norm.cu).
 On the CPU: its plain version against the encoders' norms as the port
 computed them before the kernel, bit for bit, in both layouts; the dispatch,
 which keeps f32 inputs, calls that autograd records, train-mode BatchNorm
-and CPU tensors off the kernel; the fused ReLU; the launch counts that
-chip_smoke.expected_launches derives. On a GPU (``-m cuda``): the kernel
-against its plain version at the encoders' shapes and a ragged one, in both
-layouts, and the model's forwards through it.
+and CPU tensors off the kernel; the fused ReLU; the residual block's
+epilogue relu(x + y) (the plain versions, the blocks, the wrapper's choice
+between the kernel's epilogue and the eager one); the launch counts that
+chip_smoke.expected_launches derives; the C functions' parameters against
+the ctypes signatures. On a GPU (``-m cuda``): the kernel against its plain
+version at the encoders' shapes and a ragged one, in both layouts, its
+residual epilogue against the eager chain bit for bit, and the model's
+forwards through it.
 
 No JAX here, so the GPU cases run on a machine without it:
 
@@ -16,7 +20,11 @@ No JAX here, so the GPU cases run on a machine without it:
 
 from __future__ import annotations
 
+import ctypes
 import dataclasses
+import inspect
+import re
+from pathlib import Path
 
 import pytest
 import torch
@@ -24,6 +32,7 @@ import torch.nn.functional as F
 
 import bflow_tpu_torch as bt
 from bflow_tpu_torch import kernels
+from bflow_tpu_torch.kernels import build as kbuild
 from bflow_tpu_torch.kernels import norm as knorm
 from bflow_tpu_torch.models import extractor as text
 from test_torch_common import one_torch_thread  # noqa: F401 (autouse)
@@ -70,35 +79,48 @@ def _before_batch(bn, x):
                         bn.weight, bn.bias, False, 0.0, bn.eps).to(x.dtype)
 
 
-@pytest.mark.parametrize("relu", [False, True])
+def _epilogue(y, epilogue, layout, seed):
+    """(relu, residual, what follows y in the encoders) for an epilogue
+    case: no ReLU, the ReLU, or the residual block's: the ReLU, then
+    relu(x + y) with a drawn shortcut x."""
+    if epilogue != "residual":
+        return epilogue, None, F.relu(y) if epilogue else y
+    x = _inputs(layout, seed)
+    return True, x, F.relu(x + F.relu(y))
+
+
+# "residual": the ReLU, then relu(x + y) (a residual block's second norm)
+EPILOGUES = [False, True, "residual"]
+
+
+@pytest.mark.parametrize("relu", EPILOGUES)
 @pytest.mark.parametrize("layout", LAYOUTS)
 def test_plain_instance_norm_is_the_encoders_norm(layout, relu):
     x = _inputs(layout, 0)
-    want = _before_instance(x)
-    want = F.relu(want) if relu else want
-    got = knorm.instance_norm_plain(x, relu)
+    relu, res, want = _epilogue(_before_instance(x), relu, layout, 20)
+    got = knorm.instance_norm_plain(x, relu, res)
     assert got.dtype == torch.bfloat16 and torch.equal(got, want)
-    assert torch.equal(text.InstanceNorm()(x, relu=relu), want)
+    assert torch.equal(text.InstanceNorm()(x, relu=relu, residual=res), want)
     # on the CPU the wrapper takes the plain version, in x's layout
-    out = knorm.instance_norm(x, relu)
+    out = knorm.instance_norm(x, relu, res)
     assert torch.equal(out, want)
     assert out.is_contiguous(memory_format=(
         torch.channels_last if layout == "channels_last"
         else torch.contiguous_format))
 
 
-@pytest.mark.parametrize("relu", [False, True])
+@pytest.mark.parametrize("relu", EPILOGUES)
 @pytest.mark.parametrize("layout", LAYOUTS)
 def test_plain_batch_norm_is_the_encoders_norm(layout, relu):
     x = _inputs(layout, 1)
     bn = _batch_norm(16, 2)
-    want = _before_batch(bn, x)
-    want = F.relu(want) if relu else want
+    relu, res, want = _epilogue(_before_batch(bn, x), relu, layout, 21)
     stats = (bn.running_mean, bn.running_var, bn.weight, bn.bias, bn.eps)
     with torch.no_grad():
-        assert torch.equal(knorm.batch_norm_plain(x, *stats, relu), want)
-        assert torch.equal(bn(x, relu=relu), want)
-        assert torch.equal(knorm.batch_norm(x, *stats, relu), want)
+        assert torch.equal(knorm.batch_norm_plain(x, *stats, relu, res),
+                           want)
+        assert torch.equal(bn(x, relu=relu, residual=res), want)
+        assert torch.equal(knorm.batch_norm(x, *stats, relu, res), want)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -119,10 +141,12 @@ def test_f32_instance_norm_unchanged():
 
 
 class _Spy:
-    """Stands in for the kernel wrappers and records who reached them."""
+    """Stands in for the kernel wrappers and records who reached them and
+    whether with a residual."""
 
     def __init__(self, monkeypatch):
         self.calls = []
+        self.residuals = []
         for name in ("instance_norm", "batch_norm"):
             plain = getattr(knorm, f"{name}_plain")
             monkeypatch.setattr(knorm, name, self._wrap(name, plain))
@@ -130,6 +154,9 @@ class _Spy:
     def _wrap(self, name, plain):
         def fn(*args, **kwargs):
             self.calls.append(name)
+            bound = inspect.signature(plain).bind(*args, **kwargs)
+            self.residuals.append(
+                bound.arguments.get("residual") is not None)
             return plain(*args, **kwargs)
         return fn
 
@@ -198,6 +225,170 @@ def test_dispatch_keeps_cpu_tensors_off_the_kernel(monkeypatch):
     assert calls == [] and kernels.launch_counts()[knorm.NAME] == 0
 
 
+def _cin(stride):
+    """The block's input channels: 24 beside its output where the shortcut
+    is the input itself, 16 where the downsample makes it."""
+    return 24 if stride == 1 else 16
+
+
+def _block(norm, stride, dtype, seed):
+    """A residual block (with its downsample where stride is 2) in eval
+    mode, seeded weights, drawn BatchNorm statistics."""
+    block = text.ResidualBlock(_cin(stride), 24, norm, stride, dtype)
+    text.init_weights(block, torch.Generator().manual_seed(seed))
+    for i, m in enumerate(block.modules()):
+        if isinstance(m, text.BatchNorm):
+            src = _batch_norm(24, seed + i)
+            m.load_state_dict(src.state_dict())
+    return block.eval()
+
+
+def _unfused(block, x):
+    """The block as the port computed it before the epilogue moved into
+    the second norm: both norms, then the downsample, then relu(x + y)."""
+    y = block.norm1(block.conv1(x), relu=True)
+    y = block.norm2(block.conv2(y), relu=True)
+    if block.downsample is not None:
+        x = block.downsample(x)
+    return F.relu(x + y)
+
+
+@pytest.mark.parametrize("stride", [1, 2])
+@pytest.mark.parametrize("norm", ["instance", "batch", "group", "none"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_residual_block_equals_the_unfused_chain(monkeypatch, dtype, norm,
+                                                 stride):
+    """The block hands its shortcut to norm2, which ends with relu(x + y):
+    the same tensor as the unfused chain, bit for bit, with and without a
+    downsample, on the CPU and through the dispatch with the gate's device
+    test passed (the kernel wrappers then run their plain versions), where
+    the instance norms and eval BatchNorms of a bf16 block take it."""
+    block = _block(norm, stride, dtype, 30 + stride)
+    x = _inputs("channels_last", 31, c=_cin(stride), h=10, w=12,
+                dtype=dtype)
+    with torch.no_grad():
+        want = _unfused(block, x)
+        assert torch.equal(block(x), want)
+        spy = _Spy(monkeypatch)
+        monkeypatch.setattr(knorm, "_on_card", lambda t: True)
+        got = block(x)
+    assert got.dtype == dtype and torch.equal(got, want)
+    kernel = dtype == torch.bfloat16 and norm in ("instance", "batch")
+    # norm1, the downsample's norm, norm2 with the shortcut
+    want_res = [False] * (1 + (stride == 2)) + [True]
+    assert spy.residuals == (want_res if kernel else [])
+
+
+def test_residual_block_backward_unchanged():
+    """Training runs the eager epilogue: the block's gradients are the
+    unfused chain's, bit for bit."""
+    grads = []
+    for fn in (lambda b, x: b(x), _unfused):
+        block = _block("batch", 2, None, 40).train()
+        x = _inputs("nchw", 41, c=16, h=10, w=12,
+                    dtype=torch.float32).requires_grad_(True)
+        fn(block, x).square().sum().backward()
+        grads.append([x.grad] + [p.grad for p in block.parameters()])
+    assert all(torch.equal(a, b) for a, b in zip(*grads))
+
+
+def test_residual_fits_only_in_the_inputs_layout():
+    z = _inputs("channels_last", 42)
+    assert knorm.residual_fits(z, _inputs("channels_last", 43))
+    assert not knorm.residual_fits(z, _inputs("nchw", 43))
+    assert not knorm.residual_fits(z, _inputs("channels_last", 43,
+                                              dtype=torch.float32))
+    assert not knorm.residual_fits(z, _inputs("channels_last", 43, w=12))
+    zn = _inputs("nchw", 44)
+    assert knorm.residual_fits(zn, _inputs("nchw", 45))
+    assert not knorm.residual_fits(zn, _inputs("channels_last", 45))
+    # a strided view is read after a copy to NCHW: an NCHW shortcut fits
+    wide = _inputs("nchw", 46, w=22)
+    view = wide[..., ::2]
+    assert knorm._kind(view) is None
+    assert knorm.residual_fits(view, _inputs("nchw", 47))
+
+
+@pytest.mark.parametrize("shortcut", ["fits", "nchw", "float32"])
+@pytest.mark.parametrize("kind", ["instance", "batch"])
+def test_wrapper_fuses_a_fitting_shortcut_else_adds_it_after(
+        monkeypatch, kind, shortcut):
+    """The CUDA wrapper with a stand-in launch that writes the plain
+    norm's bytes (or, handed the shortcut's pointer, the fused result's):
+    a shortcut in z's layout and type goes to the kernel and counts one
+    residual launch; another layout or type gets no pointer, and
+    relu(x + y) follows the kernel as two PyTorch ops. Either way the
+    block's tensor."""
+    z = _inputs("channels_last", 50)
+    bn = _batch_norm(16, 51)
+    stats = (bn.running_mean, bn.running_var, bn.weight, bn.bias, bn.eps)
+    x = _inputs("channels_last", 52)
+    if shortcut == "nchw":
+        x = x.contiguous()
+    elif shortcut == "float32":
+        x = x.float()
+    plain = (knorm.instance_norm_plain(z, True) if kind == "instance"
+             else knorm.batch_norm_plain(z, *stats, True))
+    fused = F.relu(x.bfloat16() + plain)
+    seen = []
+
+    def launch(fn, device, x_ptr, out_ptr, res_ptr, *rest):
+        seen.append(res_ptr)
+        src = plain if res_ptr is None else fused
+        assert res_ptr in (None, x.data_ptr())
+        ctypes.memmove(out_ptr, src.data_ptr(), 2 * src.numel())
+
+    monkeypatch.setattr(kbuild, "function", lambda *a: None)
+    monkeypatch.setattr(kbuild, "launch", launch)
+    kernels.reset_launch_counts()
+    with torch.no_grad():
+        got = (knorm._instance_cuda(z, True, x) if kind == "instance"
+               else knorm._batch_cuda(z, *stats, True, x))
+    assert torch.equal(got, F.relu(x + plain))
+    assert got.dtype == x.dtype
+    fits = shortcut == "fits"
+    assert seen == [x.data_ptr() if fits else None]
+    counts = kernels.launch_counts()
+    assert counts[knorm.NAME] == 1 and counts[knorm.RESIDUAL_NAME] == fits
+
+
+def test_dispatch_keeps_the_epilogue_eager_when_autograd_records(on_card):
+    """A shortcut that autograd records keeps the whole norm off the
+    kernel; in f32 the norms never reach it."""
+    z = _inputs("channels_last", 53)
+    x = _inputs("channels_last", 54).requires_grad_(True)
+    y = text.InstanceNorm()(z, relu=True, residual=x)
+    assert torch.equal(y, F.relu(x.detach() + F.relu(_before_instance(z))))
+    y.float().sum().backward()
+    assert x.grad is not None
+    z32 = _inputs("channels_last", 55, dtype=torch.float32)
+    x32 = _inputs("channels_last", 56, dtype=torch.float32)
+    with torch.no_grad():
+        got = text.InstanceNorm()(z32, relu=True, residual=x32)
+    assert torch.equal(got, F.relu(x32 + F.relu(_before_instance(z32))))
+    assert on_card.calls == []
+
+
+def _c_params(symbol):
+    """The parameter types of an extern "C" function of csrc/norm.cu."""
+    src = (Path(knorm.__file__).parent.parent / "csrc" / "norm.cu"
+           ).read_text()
+    m = re.search(rf"int {symbol}\(([^)]*)\)", src)
+    return [p.rsplit(" ", 1)[0].replace("const ", "").strip()
+            for p in m.group(1).split(",")]
+
+
+@pytest.mark.parametrize("symbol, argtypes", [
+    ("norm_instance_bf16", knorm._INSTANCE_ARGS),
+    ("norm_batch_bf16", knorm._BATCH_ARGS)])
+def test_ctypes_signatures_match_the_c_functions(symbol, argtypes):
+    """A pointer for each pointer, an int for each int, a float for eps,
+    the stream last: ctypes would pass anything else unchecked."""
+    ctype = {"void*": ctypes.c_void_p, "int": ctypes.c_int,
+             "float": ctypes.c_float}
+    assert [ctype[t] for t in _c_params(symbol)] == argtypes
+
+
 @pytest.mark.parametrize("c", [4, 12, 1032])
 def test_wrapper_refuses_what_the_kernel_does_not_take(c):
     x = _inputs("nchw", 14, c=c, h=3, w=4)
@@ -228,16 +419,35 @@ def test_expected_launches_count_the_norms():
     import chip_smoke
 
     cfg = bt.flagship_config()
-    assert chip_smoke.expected_launches(cfg)[knorm.NAME] == 45
-    assert chip_smoke.expected_launches(
-        cfg, train=True)[knorm.NAME] == 0
-    assert chip_smoke.expected_launches(dataclasses.replace(
-        cfg, use_images=False))[knorm.NAME] == 30
-    assert chip_smoke.expected_launches(dataclasses.replace(
-        cfg, compute_dtype="float32"))[knorm.NAME] == 0
+    want = chip_smoke.expected_launches
+    names = (knorm.NAME, knorm.RESIDUAL_NAME)
+    assert [want(cfg)[k] for k in names] == [45, 18]
+    assert [want(cfg, train=True)[k] for k in names] == [0, 0]
+    assert [want(dataclasses.replace(cfg, use_images=False))[k]
+            for k in names] == [30, 12]
+    assert [want(dataclasses.replace(cfg, compute_dtype="float32"))[k]
+            for k in names] == [0, 0]
     enc = text.BasicEncoder(5, 24, "instance")
     assert sum(isinstance(m, (text.InstanceNorm, text.BatchNorm))
                for m in enc.modules()) == 15
+    assert sum(isinstance(m, text.ResidualBlock)
+               for m in enc.modules()) == 6
+
+
+def test_bf16_encoders_hand_every_block_its_shortcut(on_card):
+    """A bf16 E_I forward with the gate's device test passed: 45 norms
+    reach the kernel wrappers, 18 of them with their block's shortcut,
+    as chip_smoke.expected_launches derives."""
+    import chip_smoke
+
+    cfg = bt.flagship_config()
+    model = bt.build_model(cfg, device="cpu", seed=0)
+    with torch.no_grad():
+        model(torch.randn(1, 64, 96, cfg.nbins_total),
+              torch.rand(2, 1, 64, 96, 3) * 255, iters=1, test_mode=True)
+    want = chip_smoke.expected_launches(cfg, 1, 64, 96, 1)
+    assert len(on_card.calls) == want[knorm.NAME] == 45
+    assert sum(on_card.residuals) == want[knorm.RESIDUAL_NAME] == 18
 
 
 # ---------------------------------------------------------------------------
@@ -276,6 +486,24 @@ def test_norm_kernel_matches_plain_on_gpu(cuda_device, shape, kind, layout,
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("layout", LAYOUTS)
+@pytest.mark.parametrize("kind", ["instance", "batch"])
+@pytest.mark.parametrize("shape", GPU_SHAPES)
+def test_norm_kernel_residual_equals_eager_chain_on_gpu(cuda_device, shape,
+                                                        kind, layout):
+    """The kernel with the block's epilogue against the kernel without it
+    followed by PyTorch's bf16 add and ReLU: equal to the last bit, a
+    second launch bit-equal, the layout kept, one residual launch a
+    call."""
+    import chip_smoke
+
+    rec = chip_smoke.check_norm_residual(kind, *shape,
+                                         layout == "channels_last",
+                                         seed=sum(shape) + 7)
+    assert rec["ok"], rec
+
+
+@pytest.mark.cuda
 def test_norm_kernel_refuses_odd_channels_on_gpu(cuda_device):
     x = torch.randn(2, 12, 8, 8, device=cuda_device).bfloat16()
     assert not knorm.supported(x.shape)
@@ -291,10 +519,10 @@ def test_norm_kernel_refuses_odd_channels_on_gpu(cuda_device):
 @pytest.mark.parametrize("opt_in", [False, True])
 def test_encoders_run_every_norm_through_the_kernel_on_gpu(cuda_device,
                                                            opt_in):
-    """A bf16 forward launches the norm kernel 45 times (both layouts: the
-    conv kernels hand it channels-last, cuDNN NCHW), matches the same
-    forward on the plain twins, and an f32 or training forward launches it
-    never."""
+    """A bf16 forward launches the norm kernel 45 times, 18 with the
+    block's shortcut (both layouts: the conv kernels hand it channels-last,
+    cuDNN NCHW), matches the same forward on the plain twins, and an f32
+    or training forward launches it never."""
     import chip_smoke
 
     cfg = chip_smoke.opt_in_config() if opt_in else bt.flagship_config()
@@ -305,6 +533,7 @@ def test_encoders_run_every_norm_through_the_kernel_on_gpu(cuda_device,
     _, up = model(voxel, images, iters=2, test_mode=True)
     torch.cuda.synchronize()
     assert kernels.launch_counts()[knorm.NAME] == 45
+    assert kernels.launch_counts()[knorm.RESIDUAL_NAME] == 18
     with chip_smoke.plain_twins():
         _, twin = model(voxel, images, iters=2, test_mode=True)
     err = ((up.params.float() - twin.params.float()).abs().max()
@@ -321,3 +550,4 @@ def test_encoders_run_every_norm_through_the_kernel_on_gpu(cuda_device,
     train(voxel, images, iters=2, test_mode=False)
     torch.cuda.synchronize()
     assert kernels.launch_counts()[knorm.NAME] == 0
+    assert kernels.launch_counts()[knorm.RESIDUAL_NAME] == 0
