@@ -20,29 +20,32 @@
 // cp.async, zero-filled where the tap falls outside the image, the row is
 // past M or the column past K.
 //
-// What bounds the flagship's shapes on this card (H100 SXM: 132 SMs, 989
-// TFLOP/s bf16, 3.35 TB/s):
-//   * the encoders' convs at 240x320 and 120x160 (M = 19,200 to 384,000,
-//     O = 64 to 128, K = 392 to 1,152) sit near the ridge: their byte and
-//     operation bounds are within 2x of each other. In an implicit GEMM
-//     every input byte is gathered kh*kw times and B is read again by
-//     every block, so what the kernel feels is the L2-to-SM traffic (at
-//     5x64x240x320 -> 64 about 660 MB per launch, moved at about 5.4 TB/s).
-//     The design: 128-pixel tiles (two warpgroups, each a 64-row wgmma)
-//     that cover all output channels (BN = 64, 96 or 128), so A is
+// Which launches run this loop: the stride-2 stems (stem_conv.cu), and of
+// the stride-1 convs (conv3x3.cu) those that conv_pipe.cuh's persistent
+// TMA pipeline does not take: launches of few 128-pixel tiles and inputs
+// whose padded channels are not a multiple of 32 (convf1's 8). What bounds
+// them on this card (H100 SXM: 132 SMs, 989 TFLOP/s bf16, 3.35 TB/s):
+//   * the stems (M up to 384,000) and the encoders' convs of few tiles at
+//     batch 1 (M = 9,600 to 38,400, K = 576 to 1,152) sit near the ridge:
+//     their byte and operation bounds are within 2x of each other. In an
+//     implicit GEMM every input byte is gathered kh*kw times and B is read
+//     again by every block, so what the kernel feels is the L2-to-SM
+//     traffic. The design: 128-pixel tiles (two warpgroups, each a 64-row
+//     wgmma) that cover all output channels (BN = 64, 96 or 128), so A is
 //     gathered once and B is read once per 128 pixels; two blocks per SM,
 //     so one block's epilogue overlaps the other's loads.
-//   * the update block's convs at 60x80 (M = 4,800, O = 64 to 384, K = 392
-//     to 2,304) are 38 to 75 tiles for 132 SMs and a serial K loop of up
-//     to 36 steps: bound by the latency of that chain and by how many SMs
-//     take part. The design: 64-pixel tiles (one warpgroup) with a deeper
-//     ring, output channels split over grid.y in the tile width that gives
-//     the most blocks within one wave, and where SMs are still idle, K
-//     split over the 2 or 4 blocks of a thread-block cluster whose partial
-//     sums the first block adds up in rank order through distributed
-//     shared memory (no atomics: the result is bitwise repeatable).
+//   * the update block's convs at 60x80 and batch 1 (M = 4,800, O = 64 to
+//     384, K = 392 to 2,304) are 38 to 75 tiles for 132 SMs and a serial K
+//     loop of up to 36 steps: bound by the latency of that chain and by
+//     how many SMs take part. The design: 64-pixel tiles (one warpgroup)
+//     with a deeper ring, output channels split over grid.y in the tile
+//     width that gives the most blocks within one wave, and where SMs are
+//     still idle, K split over the 2 or 4 blocks of a thread-block cluster
+//     whose partial sums the first block adds up in rank order through
+//     distributed shared memory (no atomics: the result is bitwise
+//     repeatable).
 // The host-side tile plan (kernels/conv_common.py:tile_plan) picks the
-// variant from (M, O, K).
+// variant from (M, O, K), launch_plan the loop.
 //
 // The pipeline: a ring of STAGES (A, B) tile pairs in dynamic shared
 // memory, each row 64 bf16 = 128 bytes, written by the copies at

@@ -72,6 +72,7 @@
 #include <stdint.h>
 
 #include "conv_igemm.cuh"
+#include "sm90.cuh"
 
 namespace {
 
@@ -79,6 +80,20 @@ using conv_igemm::smem_desc;
 using conv_igemm::wgmma_commit;
 using conv_igemm::wgmma_fence;
 using conv_igemm::wgmma_wait;
+using sm90::l2_policy_evict_last;
+using sm90::lds128;
+using sm90::lds32;
+using sm90::make_map;
+using sm90::mbar_arrive;
+using sm90::mbar_expect_tx;
+using sm90::mbar_init;
+using sm90::mbar_wait;
+using sm90::regs_dec;
+using sm90::regs_inc;
+using sm90::Ring;
+using sm90::smem_u32;
+using sm90::sts32;
+using sm90::tma_load_2d;
 
 constexpr int O = 256;              // output channels, all in one tile
 constexpr int BK = conv_igemm::BK;  // K step: 64 bf16
@@ -111,101 +126,6 @@ constexpr int SMEM_BYTES = 1024 + B_STAGES * B_BYTES + A_STAGES * A_BYTES +
                            4 * CONSUMERS * STAGING +
                            2 * (A_STAGES + B_STAGES) * 8;
 static_assert(B_BYTES % 1024 == 0, "the swizzle's 1,024 bytes");
-
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return (uint32_t)__cvta_generic_to_shared(p);
-}
-
-__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar),
-               "r"(count)
-               : "memory");
-}
-
-__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::
-                   "r"(bar),
-               "r"(bytes)
-               : "memory");
-}
-
-__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar)
-               : "memory");
-}
-
-// spins until the barrier's phase of this parity has completed
-__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
-  uint32_t done;
-  do {
-    asm volatile(
-        "{\n.reg .pred p;\n"
-        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done)
-        : "r"(bar), "r"(parity)
-        : "memory");
-  } while (!done);
-}
-
-template <int REGS>
-__device__ __forceinline__ void regs_dec() {
-  asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(REGS));
-}
-
-template <int REGS>
-__device__ __forceinline__ void regs_inc() {
-  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(REGS));
-}
-
-__device__ __forceinline__ uint64_t l2_policy_evict_last() {
-  uint64_t p;
-  asm volatile("createpolicy.fractional.L2::evict_last.b64 %0, 1.0;\n"
-               : "=l"(p));
-  return p;
-}
-
-// one box of a 2-D tensor map into shared memory, counted on bar; c0 (the
-// column) must be a multiple of 8 bf16
-__device__ __forceinline__ void tma_load_2d(uint32_t dst, const CUtensorMap* map,
-                                            int c0, int c1, uint32_t bar) {
-  asm volatile(
-      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx"
-      "::bytes [%0], [%1, {%2, %3}], [%4];\n" ::"r"(dst),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(bar)
-      : "memory");
-}
-
-// the same with an L2 eviction policy
-__device__ __forceinline__ void tma_load_2d(uint32_t dst, const CUtensorMap* map,
-                                            int c0, int c1, uint32_t bar,
-                                            uint64_t policy) {
-  asm volatile(
-      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx"
-      "::bytes.L2::cache_hint [%0], [%1, {%2, %3}], [%4], %5;\n" ::"r"(dst),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(bar),
-      "l"(policy)
-      : "memory");
-}
-
-__device__ __forceinline__ void sts32(uint32_t addr, uint32_t v) {
-  asm volatile("st.shared.u32 [%0], %1;\n" ::"r"(addr), "r"(v) : "memory");
-}
-
-__device__ __forceinline__ uint4 lds128(uint32_t addr) {
-  uint4 v;
-  asm volatile("ld.shared.v4.u32 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(v.x), "=r"(v.y), "=r"(v.z), "=r"(v.w)
-               : "r"(addr)
-               : "memory");
-  return v;
-}
-
-__device__ __forceinline__ uint32_t lds32(uint32_t addr) {
-  uint32_t v;
-  asm volatile("ld.shared.u32 %0, [%1];\n" : "=r"(v) : "r"(addr) : "memory");
-  return v;
-}
 
 // 8 bytes of shared memory at a 2-byte aligned address, as two words
 __device__ __forceinline__ void lds64_any(uint32_t addr, uint32_t& lo,
@@ -251,34 +171,6 @@ __device__ __forceinline__ void wgmma_m64n128k16_rs(float (&d)[64],
         "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
 }
-
-// a ring of stages and its two barriers a stage, full (the bytes have
-// landed) and empty (every consumer warp is done with them), in shared
-// memory from base: full[0..n), empty[0..n); with the stage this thread is
-// at and the phase of its barriers
-struct Ring {
-  uint32_t base;
-  int n;
-  int stage = 0;
-  uint32_t phase = 0;
-  __device__ uint32_t full() const { return base + 8u * stage; }
-  __device__ uint32_t empty() const { return base + 8u * (n + stage); }
-  __device__ uint32_t empty_before() const {  // the previous stage's
-    return base + 8u * (n + (stage == 0 ? n - 1 : stage - 1));
-  }
-  __device__ void next() {
-    if (++stage == n) {
-      stage = 0;
-      phase ^= 1;
-    }
-  }
-  __device__ void init(uint32_t consumers) const {
-    for (int s = 0; s < n; ++s) {
-      mbar_init(base + 8u * s, 1);
-      mbar_init(base + 8u * (n + s), consumers);
-    }
-  }
-};
 
 // this thread's A fragments of one K step (t of k_tiles) from the stage at
 // at: a0, a2 of row i, a1, a3 of row i + 8 (at + 8 box rows), per 16
@@ -457,50 +349,6 @@ corr_proj_kernel(const __grid_constant__ CUtensorMap map_x,
       }
     }
   }
-}
-
-// cuTensorMapEncodeTiled from the driver, found through the runtime so the
-// library links against nothing but cudart
-using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
-                                 void*, const cuuint64_t*, const cuuint64_t*,
-                                 const cuuint32_t*, const cuuint32_t*,
-                                 CUtensorMapInterleave, CUtensorMapSwizzle,
-                                 CUtensorMapL2promotion,
-                                 CUtensorMapFloatOOBfill);
-
-EncodeTiled encode_tiled() {
-  static EncodeTiled fn = nullptr;
-  if (fn == nullptr) {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult found;
-#if CUDART_VERSION >= 12050
-    cudaError_t err = cudaGetDriverEntryPointByVersion(
-        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &found);
-#else
-    cudaError_t err = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p,
-                                              cudaEnableDefault, &found);
-#endif
-    if (err == cudaSuccess && found == cudaDriverEntryPointSuccess)
-      fn = reinterpret_cast<EncodeTiled>(p);
-  }
-  return fn;
-}
-
-// a (rows, cols) bf16 matrix of row pitch cols, read in (box_rows,
-// box_cols) boxes
-bool make_map(CUtensorMap* map, const void* base, uint64_t rows,
-              uint64_t cols, uint32_t box_rows, uint32_t box_cols,
-              CUtensorMapSwizzle swizzle, CUtensorMapL2promotion promotion) {
-  EncodeTiled encode = encode_tiled();
-  if (encode == nullptr) return false;
-  const cuuint64_t dims[2] = {cols, rows};
-  const cuuint64_t strides[1] = {cols * 2};
-  const cuuint32_t box[2] = {box_cols, box_rows};
-  const cuuint32_t elem[2] = {1, 1};
-  return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2,
-                const_cast<void*>(base), dims, strides, box, elem,
-                CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle, promotion,
-                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
 }  // namespace

@@ -14,6 +14,7 @@ KERNELS = {
     corr_lookup.BWD_NAME: (corr_lookup, "bwd_launches"),
     stem_conv.NAME: (stem_conv, "launches"),
     conv3x3.NAME: (conv3x3, "launches"),
+    conv3x3.PIPELINED_NAME: (conv3x3, "pipelined_launches"),
     norm.NAME: (norm, "launches"),
     norm.RESIDUAL_NAME: (norm, "residual_launches"),
     corr_proj.NAME: (corr_proj, "launches"),

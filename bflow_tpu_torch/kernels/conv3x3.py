@@ -8,7 +8,9 @@ over csrc/conv_igemm.cuh; conv_common.py holds the tile plan, the
 prepared-weight cache and the launch. The output is channels-last in
 memory. ``supported`` is a copy of the JAX package's
 gate: the model sends a conv to the kernel exactly where the JAX package
-sends it to the Pallas kernel, so the two round in the same places.
+sends it to the Pallas kernel, so the two round in the same places. A
+launch runs one of the kernel's two main loops (conv_common.launch_plan
+picks it from the shape); both give the same bits.
 """
 
 from __future__ import annotations
@@ -26,8 +28,11 @@ from bflow_tpu_torch.kernels.conv_common import (
 
 NAME = "conv3x3"
 
-# kernel launches since the last reset (kernels.reset_launch_counts)
+# kernel launches since the last reset (kernels.reset_launch_counts), and
+# of those the launches that took the pipelined loop (csrc/conv_pipe.cuh)
 launches = 0
+pipelined_launches = 0
+PIPELINED_NAME = "conv3x3_pipelined"
 
 _P_BYTES = 2_000_000  # the TPU kernel's patch scratch budget
 _VMEM_BYTES = 8_000_000  # its whole working-set budget
@@ -75,9 +80,10 @@ def conv2d_plain(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
 
 
 def _fwd_cuda(x, w, b, stride, relu, plan=None):
-    global launches
-    out = launch_cuda(NAME, x, w, b, stride, relu, plan)
+    global launches, pipelined_launches
+    out, ran = launch_cuda(NAME, x, w, b, stride, relu, plan)
     launches += 1
+    pipelined_launches += ran.pipelined
     return out
 
 
@@ -87,7 +93,7 @@ def conv2d(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
     in channels-last strides, odd kh and kw, SAME padding. x may lie in
     any layout; channels-last with C a multiple of 8 is read in place.
     CUDA tensors go through the kernel (``plan``: a conv_common.TilePlan
-    to force, by default conv_common.tile_plan's), CPU tensors through
+    to force, by default conv_common.launch_plan's), CPU tensors through
     conv2d_plain; the gradient is the plain bf16 conv's either way
     (conv_common.ConvFn)."""
     check(x, w, b)

@@ -33,6 +33,9 @@ from bflow_tpu_torch.utils.timers import span
 # x, w, bias, out, n, cp (padded channels), h, w, o, kh, kw, relu, and the
 # tile variant bm, bn, split; the stream comes last
 ARGTYPES = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 11 + [ctypes.c_void_p]
+# the pipelined loop's (csrc/conv_pipe.cuh): the same up to relu, then bn
+PIPELINED_ARGTYPES = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 9 + [
+    ctypes.c_void_p]
 
 SMS = 132  # streaming multiprocessors of an H100 SXM
 SMEM_LIMIT = 232_448  # bytes of shared memory one block may take there
@@ -42,6 +45,9 @@ BK = 64  # the kernels' K step (csrc/conv_igemm.cuh)
 VARIANTS = {(64, 64): 6, (64, 96): 5, (64, 128): 4,
             (128, 64): 4, (128, 96): 4, (128, 128): 3}
 SPLITS = (1, 2, 4)  # blocks of a cluster that share K
+# the pipelined loop takes launches of at least this many 128-pixel tiles:
+# two waves of the other loop's two blocks an SM
+PIPELINED_MIN_TILES = 4 * SMS
 
 # what the wrappers did since the last reset_counters(): copies of an
 # activation into the kernels' layout, weights laid out for them, and the
@@ -151,12 +157,16 @@ class TilePlan:
     """One instantiation of the kernel and its grid: ``bm`` output pixels
     (64 or 128: one warpgroup per 64) and ``bn`` output channels per
     block, a ring of ``stages`` tile pairs, K shared by the ``split``
-    blocks of a cluster."""
+    blocks of a cluster. ``pipelined``: the 128-pixel, ``bn``-channel tiles
+    go through csrc/conv_pipe.cuh's persistent loop instead (stride 1, Cp
+    a multiple of 32), which lays out its own ring and splits no K, so
+    such a plan carries no stages and a split of 1 (pipelined_plan)."""
 
     bm: int
     bn: int
     stages: int
     split: int
+    pipelined: bool = False
 
     @property
     def threads(self) -> int:
@@ -171,9 +181,16 @@ class TilePlan:
         return (-(-m // self.bm), -(-o // self.bn), self.split)
 
     def legal(self) -> bool:
+        if self.pipelined:
+            return self == pipelined_plan(self.bn) and self.bn in (64, 96, 128)
         return (VARIANTS.get((self.bm, self.bn)) == self.stages
                 and self.split in SPLITS
                 and self.smem_bytes <= SMEM_LIMIT)
+
+
+def pipelined_plan(bn: int) -> TilePlan:
+    """The pipelined loop on 128-pixel tiles of ``bn`` channels."""
+    return TilePlan(128, bn, 0, 1, pipelined=True)
 
 
 def all_plans():
@@ -227,6 +244,31 @@ def tile_plan(m: int, o: int, k: int) -> TilePlan:
            and k_tiles // (2 * split) >= 4):
         split *= 2
     return TilePlan(bm, bn, VARIANTS[(bm, bn)], split)
+
+
+@functools.lru_cache(maxsize=None)
+def pipelined(m: int, o: int, k: int, cp: int) -> bool:
+    """Whether a stride-1 conv of m output pixels, o output channels,
+    contraction depth k and cp padded input channels takes the pipelined
+    loop (csrc/conv_pipe.cuh): where tile_plan gives 128-pixel tiles
+    without a K split and there are at least PIPELINED_MIN_TILES of them,
+    so that a persistent block a SM walks several, and its TMA boxes of 32
+    or 64 channels fit cp. Every conv3x3 launch of the bf16 DSEC cell at
+    batch 16 but convf1's (cp 8); at batch 1 the encoders' large maps. A
+    function of the shape alone."""
+    plan = tile_plan(m, o, k)
+    tiles = -(-m // 128) * -(-o // plan.bn)
+    return (cp % 32 == 0 and plan.bm == 128 and plan.split == 1
+            and tiles >= PIPELINED_MIN_TILES)
+
+
+def launch_plan(m: int, o: int, k: int, cp: int, stride: int) -> TilePlan:
+    """The plan a launch runs by default: tile_plan's, or the pipelined
+    loop at its channel tile where ``pipelined`` says so (stride 1 only)."""
+    plan = tile_plan(m, o, k)
+    if stride == 1 and pipelined(m, o, k, cp):
+        return pipelined_plan(plan.bn)
+    return plan
 
 
 # ---------------------------------------------------------------------------
@@ -328,31 +370,37 @@ def _launch_args(name: str, shape, o: int, kh: int, kw: int, cp: int,
     n, _, h, wd = shape
     ho, wo = (h - 1) // stride + 1, (wd - 1) // stride + 1
     if plan is None:
-        plan = tile_plan(n * ho * wo, o, kh * kw * cp)
-    if not plan.legal():
+        plan = launch_plan(n * ho * wo, o, kh * kw * cp, cp, stride)
+    if not plan.legal() or (plan.pipelined and (stride != 1 or cp % 32)):
         raise ValueError(f"the kernels are not built for {plan}")
-    fn = build.function(name, f"{name}_bf16", ARGTYPES)
-    ints = (n, cp, h, wd, o, kh, kw, int(relu), plan.bm, plan.bn,
-            plan.split)
-    return fn, ints, (n, o, ho, wo)
+    if plan.pipelined:
+        fn = build.function(name, f"{name}_bf16_pipelined",
+                            PIPELINED_ARGTYPES)
+        ints = (n, cp, h, wd, o, kh, kw, int(relu), plan.bn)
+    else:
+        fn = build.function(name, f"{name}_bf16", ARGTYPES)
+        ints = (n, cp, h, wd, o, kh, kw, int(relu), plan.bm, plan.bn,
+                plan.split)
+    return fn, ints, (n, o, ho, wo), plan
 
 
 def launch_cuda(name: str, x: torch.Tensor, w: torch.Tensor,
                 b: torch.Tensor, stride: int, relu: bool,
-                plan: Optional[TilePlan] = None) -> torch.Tensor:
+                plan: Optional[TilePlan] = None):
     """Launch kernel ``name`` (conv3x3: stride 1, stem_conv: stride 2) on
     CUDA tensors that passed check(); returns the (N, O, Ho, Wo) bf16
-    output in channels-last strides. ``plan`` forces a tile variant (the
-    tests do); by default tile_plan picks it."""
+    output in channels-last strides and the TilePlan it ran. ``plan``
+    forces a tile variant and loop (the tests do); by default launch_plan
+    picks them."""
     from bflow_tpu_torch.kernels import build
 
     prep = prepared(w, b)
     xk = kernel_input(x, prep.cp)
     o, _, kh, kw = w.shape
-    fn, ints, out_shape = _launch_args(name, tuple(x.shape), o, kh, kw,
-                                       prep.cp, stride, relu, plan)
+    fn, ints, out_shape, plan = _launch_args(name, tuple(x.shape), o, kh,
+                                             kw, prep.cp, stride, relu, plan)
     out = torch.empty(out_shape, dtype=torch.bfloat16, device=x.device,
                       memory_format=torch.channels_last)
     build.launch(fn, x.device, xk.data_ptr(), prep.w.data_ptr(),
                  prep.b.data_ptr(), out.data_ptr(), *ints)
-    return out
+    return out, plan

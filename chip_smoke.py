@@ -4,9 +4,9 @@ checks on the card, and the times of its hand-written kernels. The rates
 the benchmark's cells measure (fields/s, samples/s) and the device's idle
 share come from benchmark/run.py, not from here.
 
-    python3 chip_smoke.py [--seed N] [--conv-sweep] [--lookup-probe]
-                          [--eval-only] [--train-only] [--dist-only]
-                          [--stream-only]
+    python3 chip_smoke.py [--seed N] [--conv-sweep] [--conv-loops]
+                          [--lookup-probe] [--eval-only] [--train-only]
+                          [--dist-only] [--stream-only]
 
 Run from the repository root, on a machine with a CUDA GPU and the CUDA
 toolkit (nvcc). Phases, each printing JSON lines:
@@ -29,6 +29,12 @@ toolkit (nvcc). Phases, each printing JSON lines:
                   channels-last and NCHW-contiguous inputs, with the
                   wrapper's layout copies and prepared weights counted and
                   gradients through their autograd.Functions included;
+                  (conv_loops) the conv3x3 kernel's two main loops forced
+                  at every conv3x3 shape of the flagship forward at B=1
+                  and of the bf16 DSEC cell's at B=16: bit-equal, each
+                  within TOL of the plain version, each timed beside the
+                  bound, the loop launch_plan takes named
+                  and the forward's totals summed (conv_loops_summary);
                   (3d) the norm kernel (instance norm and eval BatchNorm,
                   ReLU fused) at the bf16 DSEC cell's encoder shapes at
                   B=16, channels-last, timed beside its byte bound, its
@@ -1062,6 +1068,9 @@ def expected_launches(cfg, n=1, h=H, w=W, iters=ITERS, train=False):
     for row in flagship_convs(cfg, n, h, w, iters):
         if row["kernel"]:
             want[row["kernel"]] += row["per_forward"]
+    want[kconv.PIPELINED_NAME] = sum(
+        row["per_forward"] for row in flagship_convs(cfg, n, h, w, iters)
+        if row["kernel"] == kconv.NAME and conv_pipelined(row))
     want[knorm.NAME] = norm_launches(cfg, train)
     want[knorm.RESIDUAL_NAME] = residual_launches(cfg, train)
     want[kproj.NAME] = proj_launches(cfg, n, h, w, iters, train)
@@ -1072,6 +1081,38 @@ def expected_launches(cfg, n=1, h=H, w=W, iters=ITERS, train=False):
         for lvl in range(max(cfg.levels_per_target)))
     want[klookup.NAME] += iters * table
     return want
+
+
+def conv_mok(row):
+    """(M, O, K, Cp) of a conv row: its product's shape."""
+    N, C, hh, ww = row["shape"]
+    s = row["stride"]
+    cp = -(-C // 8) * 8
+    m = N * ((hh - 1) // s + 1) * ((ww - 1) // s + 1)
+    return m, row["cout"], row["kh"] * row["kw"] * cp, cp
+
+
+def conv_pipelined(row) -> bool:
+    """Whether launch_plan sends a stride-1 conv row to the pipelined loop
+    (csrc/conv_pipe.cuh)."""
+    return row["stride"] == 1 and conv_common.pipelined(*conv_mok(row))
+
+
+# the bf16 DSEC cell's batch (benchmark/workloads/dsec_ei_bf16.eval_b16.json)
+BF16_CELL_BATCH = 16
+
+
+def conv_bound(row):
+    """(operations, bytes, bound ms) of one launch of a conv row: the input
+    read once, the weights, the f32 bias and the output written once."""
+    N, C, hh, ww = row["shape"]
+    s = row["stride"]
+    ho, wo = (hh - 1) // s + 1, (ww - 1) // s + 1
+    flops = 2 * N * ho * wo * row["cout"] * C * row["kh"] * row["kw"]
+    nbytes = 2 * (N * C * hh * ww + row["cout"] * C * row["kh"] * row["kw"]
+                  + N * row["cout"] * ho * wo) + 4 * row["cout"]
+    return flops, nbytes, max(flops / BF16_FLOPS,
+                              nbytes / HBM_BYTES_PER_S) * 1e3
 
 
 def conv_inputs(row, seed):
@@ -1150,11 +1191,9 @@ def check_conv(row, seed, timing=True):
     grad_err = max(((a.grad.float() - r.grad.float()).abs().max()
                     / r.grad.float().abs().max().clamp(min=1e-30)).item()
                    for a, r in zip(leaves, ref_leaves))
-    flops = 2 * N * ho * wo * row["cout"] * C * row["kh"] * row["kw"]
-    nbytes = 2 * (x.numel() + w.numel() + N * row["cout"] * ho * wo) + 4 * (
-        row["cout"])
-    plan = conv_common.tile_plan(N * ho * wo, row["cout"],
-                                 row["kh"] * row["kw"] * (-(-C // 8) * 8))
+    flops, nbytes, bound_ms = conv_bound(row)
+    m, o, k, cp = conv_mok(row)
+    plan = conv_common.launch_plan(m, o, k, cp, stride)
     rec = {**row, "max_abs_err": err, "max_abs_ref": ref, "tol_rel": tol,
            "grad_rel_err": grad_err, "flops": flops, "bytes": nbytes,
            "tile_plan": dataclasses.asdict(plan), **wrapper,
@@ -1169,7 +1208,7 @@ def check_conv(row, seed, timing=True):
         ms_nchw_input=time_ms(_conv_call(row, x, w, b)),
         plain_ms=time_ms(lambda: conv_common.conv_plain(x, w, b, stride,
                                                         relu)),
-        bound_ms=max(flops / BF16_FLOPS, nbytes / HBM_BYTES_PER_S) * 1e3,
+        bound_ms=bound_ms,
         bound_by=("operations" if flops / BF16_FLOPS
                   > nbytes / HBM_BYTES_PER_S else "bytes"),
         library_ms=time_ms(lambda: F.conv2d(x_cl, wb_cl, bb, stride, pad)),
@@ -1211,6 +1250,89 @@ def conv_sweep(seed: int) -> None:
              picked_over_best=times[picked] / times[best],
              ms={"x".join(map(str, dataclasses.astuple(p))): t
                  for p, t in times.items()})
+
+
+def conv_loops_phase(seed: int):
+    """The conv3x3 kernel's two main loops at every conv3x3 shape of the
+    opt-in flagship forward at B=1 and at the bf16 DSEC cell's batch: the
+    pipelined loop (csrc/conv_pipe.cuh, 128-pixel tiles of tile_plan's
+    channel width) forced beside tile_plan's plan of the other loop
+    (csrc/conv_igemm.cuh), on a channels-last input. Where the pipelined
+    loop takes the input's channels, its output is bit-equal to the other
+    loop's without a K split (the same f32 sums in the same order; a split
+    adds partial sums), and each loop's output is within TOL of max |plain|
+    of the plain version (conv_common.conv_plain). Each loop's time (CUDA events, L2 flushed) beside
+    the bound, and the loop launch_plan takes. Emits a conv_loops line a
+    shape and a conv_loops_summary line a batch (each loop's total a
+    forward, the routed total, the bound); returns the records."""
+    recs = []
+    cfg = opt_in_config()
+    for n in (1, BF16_CELL_BATCH):
+        rows = [r for r in flagship_convs(cfg, n=n)
+                if r["kernel"] == kconv.NAME]
+        batch = []
+        for i, row in enumerate(rows):
+            x, w, b = conv_inputs(row, seed + i)
+            x = x.contiguous(memory_format=torch.channels_last)
+            m, o, k, cp = conv_mok(row)
+            other = conv_common.tile_plan(m, o, k)
+            plans = {"other": other}
+            if cp % 32 == 0:
+                plans["pipelined"] = conv_common.pipelined_plan(other.bn)
+            unsplit = dataclasses.replace(other, split=1)
+            outs = {name: kconv.conv2d(x, w, b, row["relu"], plan=p)
+                    for name, p in {**plans, "unsplit": unsplit}.items()}
+            want = conv_common.conv_plain(x, w, b, 1, row["relu"]).float()
+            torch.cuda.synchronize()
+            flops, nbytes, bound = conv_bound(row)
+            rec = {"batch": n, "what": row["what"], "shape": row["shape"],
+                   "cout": o, "kh": row["kh"], "kw": row["kw"],
+                   "relu": row["relu"], "per_forward": row["per_forward"],
+                   "m": m, "k": k, "cp": cp, "bn": other.bn,
+                   "other_plan": dataclasses.astuple(other),
+                   "routed": "pipelined" if conv_pipelined(row) else "other",
+                   "bound_ms": bound, "flops": flops, "bytes": nbytes,
+                   "tol": TOL[torch.bfloat16]}
+            for name in plans:
+                rec[f"{name}_err"] = ((outs[name].float() - want).abs().max()
+                                      / want.abs().max()).item()
+            del want
+            if "pipelined" in outs:
+                rec["bit_equal"] = torch.equal(outs["pipelined"],
+                                               outs["unsplit"])
+                rec["bitwise_repeatable"] = torch.equal(
+                    kconv.conv2d(x, w, b, row["relu"],
+                                 plan=plans["pipelined"]),
+                    outs["pipelined"])
+            del outs
+            for name, p in plans.items():
+                rec[f"{name}_ms"] = time_ms(
+                    lambda p=p: kconv.conv2d(x, w, b, row["relu"], plan=p),
+                    reps=10)
+                rec[f"{name}_roofline"] = 100.0 * bound / rec[f"{name}_ms"]
+            del x, w, b
+            emit("conv_loops", **rec)
+            check(rec.get("bit_equal", True)
+                  and rec.get("bitwise_repeatable", True)
+                  and all(rec[f"{name}_err"] <= rec["tol"] for name in plans),
+                  f"the conv3x3 loops disagree: {rec}")
+            batch.append(rec)
+
+        def total(key):
+            return sum(r[key] * r["per_forward"] for r in batch if key in r)
+
+        routed = sum(r[f"{r['routed']}_ms"] * r["per_forward"]
+                     for r in batch)
+        emit("conv_loops_summary", batch=n, shapes=len(batch),
+             launches=sum(r["per_forward"] for r in batch),
+             pipelined_launches=sum(r["per_forward"] for r in batch
+                                    if r["routed"] == "pipelined"),
+             routed_ms=routed, other_ms=total("other_ms"),
+             pipelined_ms=total("pipelined_ms"), bound_ms=total("bound_ms"),
+             roofline=100.0 * total("bound_ms") / routed,
+             per="forward: each shape's time x its launches")
+        recs += batch
+    return recs
 
 
 class plain_twins:
@@ -1271,8 +1393,18 @@ def lookup_fwd_resources(ptxas_log: str):
 def conv_variant_resources(ptxas_log: str):
     """Per instantiation of the conv kernel, from nvcc's -Xptxas -v log:
     (stride, pixel tile, channel tile, stages) -> registers and spill
-    bytes. Shared memory is dynamic: TilePlan.smem_bytes."""
+    bytes. Shared memory is dynamic: TilePlan.smem_bytes. The pipelined
+    loop's: (channel tile, weight resident, strips, stages) -> registers
+    (before setmaxnreg) and spill bytes."""
     out = {}
+    pipe = re.compile(
+        r"conv_pipe\d*conv_igemm_kernelILi1ELi(\d+)ELb([01])ELb([01])ELi(\d+)E"
+        r".*?(\d+) bytes spill stores, (\d+) bytes spill loads.*?"
+        r"Used (\d+) registers", re.S)
+    for m in pipe.finditer(ptxas_log):
+        bn, res, strip, stages, st, ld, regs = map(int, m.groups())
+        out[f"pipelined bn{bn} resident{res} strip{strip} stages{stages}"] = {
+            "registers": regs, "spill_bytes": st + ld}
     pat = re.compile(
         r"conv_igemm_kernelILi(\d+)ELi(\d+)ELi(\d+)ELi(\d+)E.*?"
         r"(\d+) bytes spill stores, (\d+) bytes spill loads.*?"
@@ -3223,6 +3355,10 @@ def main() -> int:
                     help="after the build, time every tile variant of the "
                          "conv kernels on every flagship conv shape "
                          "(phase conv_sweep), and stop")
+    ap.add_argument("--conv-loops", action="store_true",
+                    help="after the build, check and time the conv3x3 "
+                         "kernel's two main loops at every conv3x3 shape "
+                         "at B=1 and B=16 (phase conv_loops), and stop")
     ap.add_argument("--lookup-probe", action="store_true",
                     help="after the build, time the lookup kernels' probe "
                          "variants (phase lookup_probe), and stop")
@@ -3266,10 +3402,13 @@ def main() -> int:
          lookup_fwd_variants=lookup_fwd_resources(
              report[klookup.NAME]["ptxas"]))
 
-    if (args.conv_sweep or args.lookup_probe or args.eval_only
+    if (args.conv_sweep or args.conv_loops or args.lookup_probe
+            or args.eval_only
             or args.train_only or args.dist_only or args.stream_only):
         if args.conv_sweep:
             conv_sweep(args.seed)
+        if args.conv_loops:
+            conv_loops_phase(args.seed)
         if args.lookup_probe:
             lookup_probe(args.seed)
         if args.eval_only:
@@ -3343,6 +3482,7 @@ def main() -> int:
         emit("kernel", name=row["kernel"], **rec)
         check(rec["ok"], f"{row['kernel']} disagrees: {rec}")
         per_conv[row["kernel"]].append(rec)
+    conv_loops_phase(args.seed)
     # 3d. the norm kernel at the bf16 DSEC cell's encoder shapes
     norm_recs, norm_request_ms = norm_phase(args.seed)
     # 3e. the convc1 kernel at the three map widths and the model's rows

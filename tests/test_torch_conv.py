@@ -457,6 +457,113 @@ def test_forced_plan_is_checked_before_any_launch():
                                  False, conv_common.TilePlan(192, 64, 4, 1))
 
 
+# the conv3x3 rows that take the pipelined loop at B=1 (the encoders' large
+# maps); at the bf16 cell's B=16 every conv3x3 row but convf1's (Cp 8)
+PIPELINED_AT_B1 = {"fnet_ev layer1_0.conv1 3x3/s1", "fnet_ev layer2 3x3",
+                   "fnet_img layer1_0.conv1 3x3/s1",
+                   "cnet layer1_0.conv1 3x3/s1"}
+
+
+def _loop_rows():
+    rows = []
+    for n in (1, chip_smoke.BF16_CELL_BATCH):
+        rows += [(r, n) for r in chip_smoke.flagship_convs(
+            chip_smoke.opt_in_config(), n=n) if r["kernel"] == "conv3x3"]
+    return rows
+
+
+@pytest.mark.parametrize("i", range(34))
+def test_pipelined_routing_at_every_flagship_shape(i):
+    """The loop a conv3x3 launch takes is a function of (M, O, K, Cp)
+    alone: launch_plan is tile_plan's plan with the pipelined flag where
+    ``pipelined`` says so, 128-pixel tiles without a K split and Cp a
+    multiple of 32; at B=16 every conv3x3 launch but convf1's, at B=1 the
+    encoders' large maps."""
+    rows = _loop_rows()
+    assert len(rows) == 34  # 17 conv3x3 shapes at each batch
+    row, n = rows[i]
+    m, o, k, cp = chip_smoke.conv_mok(row)
+    plan = conv_common.launch_plan(m, o, k, cp, 1)
+    other = conv_common.tile_plan(m, o, k)
+    assert plan == (conv_common.pipelined_plan(other.bn) if plan.pipelined
+                    else other)
+    assert plan.legal()
+    assert plan.pipelined is conv_common.pipelined(m, o, k, cp)
+    if n == 1:
+        want = row["what"][0] in PIPELINED_AT_B1
+    else:
+        want = not row["what"][0].startswith("update convf1")
+    assert plan.pipelined is want, (row["what"], n, plan)
+    if plan.pipelined:
+        assert plan.bm == 128 and plan.split == 1 and cp % 32 == 0
+        assert -(-m // 128) * -(-o // plan.bn) >= (
+            conv_common.PIPELINED_MIN_TILES)
+    assert not conv_common.launch_plan(m, o, k, cp, 2).pipelined
+
+
+@pytest.mark.parametrize("m,o,k,cp,want", [
+    (10 ** 6 + 1, 1000, 9 * 96, 96, True),     # Cp 96: 32-channel boxes
+    (76_800, 124, 9 * 256, 256, True),         # O 124: 8-byte stores
+    (76_800, 192, 9 * 256, 256, True),
+    (76_800, 128, 49 * 8, 8, False),           # convf1: Cp 8
+    (76_800, 64, 9 * 40, 40, False),           # Cp not a multiple of 32
+    (4800, 128, 9 * 128, 128, False),          # B=1 update block: 38 tiles
+    (128 * 527, 64, 9 * 64, 64, False),        # one tile short
+    (128 * 528, 64, 9 * 64, 64, True),
+    (128 * 528 - 1, 64, 9 * 64, 64, True),     # the last tile in part
+    (2 ** 31 - 200, 64, 9 * 64, 64, True)])
+def test_pipelined_routing_at_ragged_shapes(m, o, k, cp, want):
+    assert conv_common.pipelined(m, o, k, cp) is want
+    plan = conv_common.launch_plan(m, o, k, cp, 1)
+    assert plan.pipelined is want and plan.legal()
+    other = conv_common.tile_plan(m, o, k)
+    assert plan == (conv_common.pipelined_plan(other.bn) if want else other)
+
+
+def test_pipelined_plan_is_checked_before_any_launch():
+    """A pipelined plan the loop does not take (Cp not a multiple of 32, a
+    stride of 2, other than 128-pixel tiles of 64, 96 or 128 channels, a K
+    split, a ring of the other loop's stages) raises before the library
+    is looked up."""
+    pipe = conv_common.pipelined_plan(64)
+    assert pipe.legal() and pipe == conv_common.TilePlan(128, 64, 0, 1, True)
+    assert all(conv_common.pipelined_plan(bn).legal() for bn in (96, 128))
+    assert not conv_common.pipelined_plan(32).legal()
+    assert not conv_common.TilePlan(64, 64, 0, 1, pipelined=True).legal()
+    assert not conv_common.TilePlan(128, 64, 0, 2, pipelined=True).legal()
+    assert not conv_common.TilePlan(128, 64, 4, 1, pipelined=True).legal()
+    for name, cp, stride in (("conv3x3", 8, 1), ("conv3x3", 40, 1),
+                             ("stem_conv", 64, 2)):
+        with pytest.raises(ValueError, match="not built"):
+            conv_common._launch_args(name, (1, cp, 8, 16), 64, 3, 3, cp,
+                                     stride, False, pipe)
+
+
+def test_pipelined_counter_stays_zero_on_cpu_and_in_f32():
+    """On the CPU the wrapper runs the plain version and counts no launch
+    of either loop, at a shape the rule sends to the pipelined loop; the
+    derived count is 0 in f32 and 126 / 15 at bf16 (B=16 / B=1)."""
+    from bflow_tpu_torch import kernels
+
+    x = torch.randn(1, 32, 264, 256).bfloat16()
+    w = torch.randn(64, 32, 3, 3) / 17.0
+    b = torch.randn(64)
+    assert conv_common.pipelined(264 * 256, 64, 9 * 32, 32)
+    kernels.reset_launch_counts()
+    assert torch.equal(kconv.conv2d(x, w, b, True),
+                       kconv.conv2d_plain(x, w, b, True))
+    counts = kernels.launch_counts()
+    assert counts[kconv.PIPELINED_NAME] == counts[kconv.NAME] == 0
+    cfg = chip_smoke.opt_in_config()
+    f32 = dataclasses.replace(cfg, compute_dtype="float32",
+                              corr_precision="float32")
+    for n in (1, 16):
+        assert chip_smoke.expected_launches(f32, n)[kconv.PIPELINED_NAME] == 0
+    assert chip_smoke.expected_launches(cfg, 16)[kconv.PIPELINED_NAME] == 126
+    assert chip_smoke.expected_launches(cfg, 16)[kconv.NAME] == 138
+    assert chip_smoke.expected_launches(cfg, 1)[kconv.PIPELINED_NAME] == 15
+
+
 @pytest.mark.parametrize("update", ["none", "add_", "load_state_dict"])
 def test_gru_fused_weights_follow_the_parameters(update):
     """The fused GRU weights are made once per parameter value where no

@@ -662,6 +662,139 @@ def test_conv_kernels_every_tile_plan_on_gpu(cuda_device, shape, o, kh, kw,
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("i", range(17))
+def test_pipelined_loop_bit_equal_at_cell_shapes_on_gpu(cuda_device, i):
+    """At each conv3x3 shape of the bf16 DSEC cell's forward (B=16,
+    480x640) the pipelined loop (csrc/conv_pipe.cuh) gives the other
+    loop's bits (same f32 sums in the same order), both within 1e-2 of
+    max |plain| of the plain version; launch_plan sends every shape but
+    convf1's to it, and convf1's 8 channels are refused by it."""
+    import chip_smoke
+
+    from bflow_tpu_torch import kernels
+    from bflow_tpu_torch.kernels import conv3x3, conv_common
+
+    rows = [r for r in chip_smoke.flagship_convs(
+        chip_smoke.opt_in_config(), n=chip_smoke.BF16_CELL_BATCH)
+        if r["kernel"] == "conv3x3"]
+    assert len(rows) == 17
+    row = rows[i]
+    m, o, k, cp = chip_smoke.conv_mok(row)
+    x, w, b = chip_smoke.conv_inputs(row, seed=i)
+    x = x.contiguous(memory_format=torch.channels_last)
+    other = conv_common.tile_plan(m, o, k)
+    assert other.bm == 128 and other.split == 1
+    pipe = conv_common.pipelined_plan(other.bn)
+    if cp % 32:
+        assert row["what"][0].startswith("update convf1")
+        assert not conv_common.pipelined(m, o, k, cp)
+        with pytest.raises(ValueError, match="not built"):
+            conv3x3.conv2d(x, w, b, row["relu"], plan=pipe)
+        return
+    assert conv_common.launch_plan(m, o, k, cp, 1) == pipe
+    before = kernels.launch_counts()
+    got = conv3x3.conv2d(x, w, b, row["relu"])  # the loop launch_plan picks
+    old = conv3x3.conv2d(x, w, b, row["relu"], plan=other)
+    torch.cuda.synchronize()
+    after = kernels.launch_counts()
+    assert after[conv3x3.NAME] == before[conv3x3.NAME] + 2
+    assert after[conv3x3.PIPELINED_NAME] == (
+        before[conv3x3.PIPELINED_NAME] + 1)
+    assert got.is_contiguous(memory_format=torch.channels_last)
+    assert torch.equal(got, old), row["what"]
+    want = conv_common.conv_plain(x, w, b, 1, row["relu"]).float()
+    for out in (got, old):
+        err = (out.float() - want).abs().max() / want.abs().max()
+        assert err <= 1e-2, err.item()
+
+
+# ragged for the pipelined loop: 60 rows (15 four-row patches), a patch
+# past the image's right and bottom edges, an odd patch count (the last
+# tile's second patch past M), O = 124 (8-byte stores) and 192 (two channel
+# tiles of 96), odd O (2-byte stores), Cp = 96 (a 32-channel step a tap),
+# 1x5 and 5x1 windows, the weight resident (O <= 64) and streamed, and
+# 64-pixel strips (Cp 64, 3x3, W a multiple of 64) with O < 64
+PIPELINED_RAGGED = [((1, 64, 60, 80), 64, 3, 3), ((2, 64, 9, 21), 64, 3, 3),
+                    ((2, 64, 9, 128), 40, 3, 3), ((3, 64, 5, 64), 64, 3, 3),
+                    ((1, 64, 4, 16), 40, 3, 3), ((2, 256, 12, 20), 124, 3, 3),
+                    ((1, 256, 12, 24), 192, 3, 3), ((3, 32, 5, 33), 33, 3, 3),
+                    ((1, 96, 17, 19), 96, 3, 3), ((1, 128, 12, 20), 128, 1, 5),
+                    ((1, 384, 12, 20), 384, 5, 1), ((1, 96, 7, 5), 200, 7, 7)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("relu", [False, True])
+@pytest.mark.parametrize("shape,o,kh,kw", PIPELINED_RAGGED)
+def test_pipelined_loop_bit_equal_at_ragged_shapes_on_gpu(cuda_device, shape,
+                                                         o, kh, kw, relu):
+    """The pipelined loop forced on ragged shapes, on channels-last,
+    NCHW-contiguous and sliced inputs: the same bits from each layout, the
+    bits of the other loop without a K split, within 1e-2 of max |plain|
+    of the plain version, bitwise repeatable, channels-last out."""
+    import dataclasses
+
+    from bflow_tpu_torch.kernels import conv3x3, conv_common
+
+    gen = torch.Generator(device="cuda").manual_seed(sum(shape) + o + kh)
+    n, c, h, w = shape
+    big = torch.randn(n, c + 3, h, w + 2, generator=gen,
+                      device="cuda").bfloat16()
+    sliced = big[:, 1:c + 1, :, 2:]
+    x = sliced.contiguous()
+    x_cl = x.contiguous(memory_format=torch.channels_last)
+    wt = torch.randn(o, c, kh, kw, generator=gen,
+                     device="cuda") / (c * kh * kw) ** 0.5
+    b = 0.1 * torch.randn(o, generator=gen, device="cuda")
+    other = dataclasses.replace(
+        conv_common.tile_plan(n * h * w, o, kh * kw * c), split=1)
+    pipe = conv_common.pipelined_plan(other.bn)
+    outs = [conv3x3.conv2d(t, wt, b, relu, plan=pipe)
+            for t in (x_cl, x, sliced, x_cl)]
+    old = conv3x3.conv2d(x_cl, wt, b, relu, plan=other)
+    torch.cuda.synchronize()
+    assert all(t.is_contiguous(memory_format=torch.channels_last)
+               for t in outs)
+    for t in outs[1:]:
+        assert torch.equal(outs[0], t)
+    assert torch.equal(outs[0], old)
+    want = conv_common.conv_plain(x, wt, b, 1, relu).float()
+    err = (outs[0].float() - want).abs().max() / want.abs().max()
+    assert err <= 1e-2, err.item()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("batch", [1, 16])
+def test_pipelined_launch_counts_on_gpu(cuda_device, batch):
+    """One bf16 opt-in forward at 480x640 and 2 iterations launches what
+    expected_launches derives: 48 conv3x3 launches, and of them the
+    pipelined ones the routing rule predicts (B=16: all but convf1's, 46;
+    B=1: the encoders' large maps, 15)."""
+    import chip_smoke
+
+    from bflow_tpu_torch import kernels
+    from bflow_tpu_torch.kernels import conv3x3
+
+    cfg = chip_smoke.opt_in_config()
+    gen = torch.Generator(device="cuda").manual_seed(batch)
+    voxel = torch.randn(batch, chip_smoke.H, chip_smoke.W, cfg.nbins_total,
+                        generator=gen, device="cuda")
+    images = 255 * torch.rand(2, batch, chip_smoke.H, chip_smoke.W, 3,
+                              generator=gen, device="cuda")
+    model = bt.build_model(cfg, device="cuda")
+    kernels.reset_launch_counts()
+    with torch.no_grad():
+        model(voxel, images, iters=2, test_mode=True)
+    torch.cuda.synchronize()
+    counts = kernels.launch_counts()
+    want = chip_smoke.expected_launches(cfg, batch, chip_smoke.H,
+                                        chip_smoke.W, 2)
+    assert counts == want
+    assert counts[conv3x3.NAME] == 48
+    assert counts[conv3x3.PIPELINED_NAME] == {1: 15, 16: 46}[batch]
+    del model
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("norm", ["instance", "batch", "group", "none"])
 def test_encoder_keeps_channels_last_between_convs_on_gpu(cuda_device, norm):
     """Under pallas_stem and pallas_conv an encoder forward hands every
