@@ -12,9 +12,9 @@ compute dtype, each conv casts its input, weight and bias to it at use.
 Norm statistics are taken in f32 and the result is cast back. Each norm
 takes ``relu``, the ReLU that follows it in the JAX modules, and
 ``residual``, the shortcut of a residual block's relu(x + y) after it; in
-bf16 inference the instance norm and the eval-mode BatchNorm, ReLU and
-residual epilogue included, are one CUDA kernel (kernels/norm.py), chosen
-by what the input shows: a bf16 CUDA tensor in a call that autograd would
+inference the instance norm and the eval-mode BatchNorm, ReLU and residual
+epilogue included, are one CUDA kernel (kernels/norm.py), chosen by what
+the input shows: a bf16 or f32 CUDA tensor in a call that autograd would
 not record (a shortcut in another layout is added after the kernel).
 
 The opt-in conv kernels follow the JAX package's dispatch
@@ -161,8 +161,8 @@ class BatchNorm(nn.BatchNorm2d):
     (nn.SyncBatchNorm would also move toward the unbiased variance.)
 
     ``relu`` applies the ReLU after the norm, ``residual`` then
-    relu(residual + y). Eval mode in bf16 inference is the norm kernel's
-    (kernels/norm.py: knorm.engages)."""
+    relu(residual + y). Eval mode in bf16 or f32 inference is the norm
+    kernel's (kernels/norm.py: knorm.engages)."""
 
     def forward(self, x: torch.Tensor, relu: bool = False,
                 residual: Residual = None) -> torch.Tensor:
@@ -210,20 +210,15 @@ class InstanceNorm(nn.Module):
     residual.
 
     f32 inputs take the two-pass mean/variance; other inputs take the JAX
-    fast mode's single pass, var = max(E[x^2] - E[x]^2, 0) in f32: the norm
-    kernel where knorm.engages (bf16 inference on the card), else its plain
-    version."""
+    fast mode's single pass, var = max(E[x^2] - E[x]^2, 0) in f32. The norm
+    kernel computes either where knorm.engages (bf16 or f32 inference on
+    the card), else its plain version."""
 
     def forward(self, x: torch.Tensor, relu: bool = False,
                 residual: Residual = None) -> torch.Tensor:
-        if x.dtype != torch.float32:
-            norm = (knorm.instance_norm if knorm.engages(x, residual)
-                    else knorm.instance_norm_plain)
-            return norm(x, relu, residual)
-        m1 = x.mean(dim=(2, 3), keepdim=True)
-        var = (x - m1).square().mean(dim=(2, 3), keepdim=True)
-        return knorm.epilogue((x - m1) * torch.rsqrt(var + 1e-5), relu,
-                              residual)
+        norm = (knorm.instance_norm if knorm.engages(x, residual)
+                else knorm.instance_norm_plain)
+        return norm(x, relu, residual)
 
 
 class NoNorm(nn.Identity):
@@ -271,8 +266,8 @@ class ResidualBlock(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         """relu(shortcut + relu(norm2(conv2(...)))): the epilogue is
-        norm2's, so in bf16 inference the norm kernel reads the shortcut
-        and writes the block's output."""
+        norm2's, so in inference on the card the norm kernel reads the
+        shortcut and writes the block's output."""
         y = self.conv2(self.norm1(self.conv1(x), relu=True))
         if self.downsample is not None:
             x = self.downsample(x)

@@ -40,9 +40,14 @@ toolkit (nvcc). Phases, each printing JSON lines:
                   B=16, channels-last, timed beside its byte bound, its
                   plain version and F.instance_norm / F.batch_norm, and
                   on NCHW inputs; within one bf16 ulp, bit-repeatable,
-                  the input's layout kept; (3e) the convc1 kernel at the
-                  map widths of DSEC E_I, MultiFlow E_I and DSEC
-                  events-only (891, 972, 567 channels) and M = 76,800,
+                  the input's layout kept; then its f32 instantiation
+                  at every encoder norm shape of the f32 eval cells
+                  against the eager f32 chain (within a few ulp of the
+                  largest output), timed at DSEC fnet_ev's stage 1 (N=40)
+                  beside its byte bounds and the eager chain, NCHW and
+                  channels-last, ReLU and residual; (3e) the convc1
+                  kernel at the map widths of DSEC E_I, MultiFlow E_I and
+                  DSEC events-only (891, 972, 567 channels) and M = 76,800,
                   4,800, 1,280 and 1,000 rows, held to the exact result of
                   its function (within one bf16 ulp, or the f32 sums'
                   round-off near 0), bit-repeatable, and timed at DSEC
@@ -156,7 +161,8 @@ toolkit (nvcc). Phases, each printing JSON lines:
                   on MultiFlow's val split, E_I_LU5_BD10 at full width
                   (41/25 bins, degree 10, 384x512) at batch 2; (12c,
                   f32_predict) predict_dsec: 4 PNGs within 1/128 px of
-                  the plain twins' f32 forward; (12d, f32_pin) the f32
+                  the f32 eval forward, and that forward within 1e-4 of
+                  the plain twins' (TF32 off); (12d, f32_pin) the f32
                   flagship forward and phase 6's train step with TF32 on
                   and off, bit-equal under deterministic cuDNN; (12e) the
                   all-level lookup at the two f32 val tables, exact
@@ -1024,10 +1030,10 @@ def flagship_convs(cfg, n=1, h=H, w=W, iters=ITERS):
 
 def norm_encoders(cfg, train: bool = False) -> int:
     """Encoders whose norms go through the norm kernel in one forward: each
-    bf16 encoder with instance norms or eval-mode BatchNorms, none in f32
-    and none in a training forward (autograd records the norms; train-mode
+    bf16 or f32 encoder with instance norms or eval-mode BatchNorms, none
+    in a training forward (autograd records the norms; train-mode
     BatchNorm takes the batch's statistics)."""
-    if train or cfg.compute_dtype != "bfloat16":
+    if train or getattr(torch, cfg.compute_dtype) not in knorm.DTYPES:
         return 0
     kinds = ([cfg.feature_norm] * (cfg.use_events + cfg.use_images)
              + [cfg.context_norm])
@@ -1468,12 +1474,14 @@ def bf16_ulps(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return (ordered(a) - ordered(b)).abs()
 
 
-def norm_inputs(kind, n, c, h, w, channels_last, seed, device="cuda"):
-    """x (N, C, H, W) bf16 ~ 2 N(0, 1) + 0.5 in the asked layout and, for a
-    BatchNorm, running mean and variance, weight and bias (f32)."""
+def norm_inputs(kind, n, c, h, w, channels_last, seed, device="cuda",
+                dtype=torch.bfloat16):
+    """x (N, C, H, W) ~ 2 N(0, 1) + 0.5 in ``dtype`` and the asked layout
+    and, for a BatchNorm, running mean and variance, weight and bias
+    (f32)."""
     gen = torch.Generator(device=device).manual_seed(seed)
     x = (2.0 * torch.randn(n, c, h, w, generator=gen, device=device)
-         + 0.5).bfloat16()
+         + 0.5).to(dtype)
     if channels_last:
         x = x.contiguous(memory_format=torch.channels_last)
     if kind == "instance":
@@ -1621,6 +1629,126 @@ def check_norm_residual(kind, n, c, h, w, channels_last, seed,
     return rec
 
 
+# the f32 cells' encoder norms: (cell, encoder, N at B=8, norm kind) and
+# each cell's stages (C, H, W): DSEC at 480x640, MultiFlow at 384x512;
+# fnet_ev takes the reference and each event target's slice of a sample
+NORM_F32_ENCODERS = [("dsec_ei", "fnet_ev", 40, "instance"),
+                     ("dsec_ei", "fnet_img", 16, "instance"),
+                     ("dsec_ei", "cnet", 8, "batch"),
+                     ("mf_ei", "fnet_ev", 48, "instance"),
+                     ("mf_ei", "fnet_img", 16, "instance"),
+                     ("mf_ei", "cnet", 8, "batch")]
+NORM_F32_STAGES = {"dsec_ei": NORM_STAGES,
+                   "mf_ei": [(64, 192, 256), (96, 96, 128), (128, 48, 64)]}
+# every encoder norm shape of the f32 cells: (kind, N, C, H, W)
+NORM_F32_SHAPES = [(kind, n, *chw) for cell, _, n, kind in NORM_F32_ENCODERS
+                   for chw in NORM_F32_STAGES[cell]]
+# the f32 kernel against the eager chain: at most this many units of
+# 2^-23 x max|eager| apart. The two take the statistics in another order
+# (the kernel joins per-thread moments by Chan's update, PyTorch's mean
+# reduces in its own tree) and round 1/sqrt(var + eps) differently, which
+# moves an output by a few ulp of itself
+NORM_F32_ULPS = 8
+
+
+def check_norm_f32(kind, n, c, h, w, channels_last, seed, epilogue="relu",
+                   timing=False):
+    """``epilogue``: "plain" (the norm alone), "relu", or "residual" (a
+    residual block's ReLU, then relu(x + y) with a drawn shortcut x).
+
+    The f32 kernel against the eager chain the model ran before it, its
+    plain version (the two-pass instance norm or F.batch_norm in f32, the
+    ReLU, relu(x + y) for a residual): within NORM_F32_ULPS x 2^-23 of
+    max|eager|; a second launch bit-equal; the output f32 in the input's
+    layout; one launch (and one residual launch with a residual) counted a
+    call. With timing: its ms (L2 flushed) beside its byte bounds (the
+    input read once and the output written once, with the residual read
+    once: 8 and 12 bytes an element; what it moves, x read twice for an
+    instance norm: 12 and 16; a three-pass kernel's, x read for the mean,
+    the variance and the normalise: 16 and 20) and the eager chain's
+    ms."""
+    z, stats = norm_inputs(kind, n, c, h, w, channels_last, seed,
+                           dtype=torch.float32)
+    res = None
+    if epilogue == "residual":
+        res, _ = norm_inputs("instance", n, c, h, w, channels_last, seed + 1,
+                             dtype=torch.float32)
+    relu = epilogue != "plain"
+    before = (knorm.launches, knorm.residual_launches)
+    call = norm_call(kind, z, stats, relu, residual=res)
+    got = call()
+    again = call()
+    torch.cuda.synchronize()
+    launches = (knorm.launches - before[0],
+                knorm.residual_launches - before[1])
+    eager = norm_call(kind, z, stats, relu, plain=True, residual=res)
+    want = eager()
+    scale = want.abs().max().item()
+    err = (got - want).abs().max().item()
+    layout = (torch.channels_last if channels_last
+              else torch.contiguous_format)
+    rec = {"kind": kind, "dtype": "float32", "shape": [n, c, h, w],
+           "layout": "channels_last" if channels_last else "nchw",
+           "epilogue": epilogue, "max_abs_err": err, "max_abs_eager": scale,
+           "err_ulps_of_max": err / (scale * 2.0 ** -23),
+           "ulps_bound": NORM_F32_ULPS,
+           "bitwise_repeatable": torch.equal(got, again),
+           "layout_kept": (got.dtype == torch.float32
+                           and got.is_contiguous(memory_format=layout)),
+           "launches_per_call": launches[0] / 2,
+           "residual_launches_per_call": launches[1] / 2,
+           "chunks": knorm.chunks(n, c, h * w, channels_last)}
+    rec["ok"] = (rec["err_ulps_of_max"] <= NORM_F32_ULPS
+                 and rec["bitwise_repeatable"] and rec["layout_kept"]
+                 and launches == (2, 2 * (res is not None)))
+    if not timing:
+        return rec
+    del got, again, want
+    extra = 4 * (res is not None)  # the shortcut's read
+    per = {"bytes": 8 + extra,
+           "bytes_moved": (12 if kind == "instance" else 8) + extra,
+           "bytes_three_pass": (16 if kind == "instance" else 8) + extra}
+    rec.update({k: v * z.numel() for k, v in per.items()},
+               ms=time_ms(call), eager_ms=time_ms(eager), bound_by="bytes")
+    for k in per:
+        bound = rec[k] / HBM_BYTES_PER_S * 1e3
+        rec[k.replace("bytes", "bound") + "_ms"] = bound
+        rec[k.replace("bytes", "roofline_share")] = bound / rec["ms"]
+    return rec
+
+
+def norm_f32_phase(seed: int, timing: bool = True):
+    """Phase 3d, f32: the kernel at every encoder norm shape of the f32
+    eval cells, channels-last as the cells run it (the probe of the f32
+    forward on the card finds every norm input and shortcut channels-last),
+    with the ReLU and with the residual epilogue; at each DSEC stage in
+    NCHW at N=2, both kinds, plain and with the residual; then timed at
+    fnet_ev's stage 1 in the DSEC cell (N=40, 64x240x320), NCHW and
+    channels-last, with the ReLU and with the residual."""
+    recs = []
+    for i, (kind, n, c, h, w) in enumerate(NORM_F32_SHAPES):
+        for epilogue in ("relu", "residual"):
+            recs.append(check_norm_f32(kind, n, c, h, w, True, seed + 2 * i,
+                                       epilogue))
+    for j, (c, h, w) in enumerate(NORM_STAGES):
+        for kind in ("instance", "batch"):
+            for epilogue in ("plain", "residual"):
+                recs.append(check_norm_f32(kind, 2, c, h, w, False,
+                                           seed + 50 + j, epilogue))
+    if timing:
+        kind, n, c, h, w = NORM_F32_SHAPES[0]
+        for channels_last in (False, True):
+            for epilogue in ("relu", "residual"):
+                rec = check_norm_f32(kind, n, c, h, w, channels_last,
+                                     seed + 70, epilogue, timing=True)
+                rec["encoder"] = "fnet_ev"
+                recs.append(rec)
+    for rec in recs:
+        emit("kernel", name=knorm.NAME, **rec)
+        check(rec["ok"], f"f32 norm kernel disagrees: {rec}")
+    return recs
+
+
 def norm_phase(seed: int, timing: bool = True):
     """Phase 3d: the norm kernel at each encoder shape of the bf16 DSEC
     cell (B=16: fnet_ev's 80 samples, fnet_img's 32, cnet's 16 through
@@ -1668,10 +1796,12 @@ def norm_phase(seed: int, timing: bool = True):
     return recs, request_ms
 
 
-def norm_summary(recs, request_ms, counts, eval_counts):
+def norm_summary(recs, request_ms, counts, eval_counts, f32_recs=()):
     """The norm kernel's entry of the kernels line: the stage-1 instance
     norm of fnet_ev (N=80, 64x240x320, channels-last) and the request's
-    total at B=16; launches in phase 4's forwards and phase 7d's val run."""
+    total at B=16; launches in phase 4's forwards and phase 7d's val run;
+    the f32 instantiation at fnet_ev's stage 1 in the DSEC f32 cell (N=40)
+    by layout and epilogue."""
     top = next(r for r in recs if r.get("encoder") == "fnet_ev"
                and r["shape"][1] == NORM_STAGES[0][0]
                and not r.get("residual"))
@@ -1703,7 +1833,18 @@ def norm_summary(recs, request_ms, counts, eval_counts):
                 **{k: res[k] for k in ("ms", "eager_ms", "plain_ms",
                                        "bound_ms", "bytes_per_element",
                                        "roofline_share")},
-                "per": "fnet_ev's stage-1 norm with the block's epilogue"}}
+                "per": "fnet_ev's stage-1 norm with the block's epilogue"},
+            "f32": {
+                "max_err_ulps_of_max": max((r["err_ulps_of_max"]
+                                            for r in f32_recs), default=None),
+                "timed": [{k: r[k] for k in (
+                    "layout", "epilogue", "ms", "eager_ms", "bound_ms",
+                    "bound_moved_ms", "bound_three_pass_ms",
+                    "roofline_share", "roofline_share_moved",
+                    "roofline_share_three_pass")}
+                    for r in f32_recs if "ms" in r],
+                "per": "fnet_ev's stage-1 norm in the DSEC f32 cell, N=40 "
+                       "at 64x240x320"}}
 
 
 # ---------------------------------------------------------------------------
@@ -2146,9 +2287,12 @@ def predict_run(sub, root, ckpt, cfg, h: int = H, w: int = W, bf16=True,
                 plain=False, device="cuda") -> dict:
     """predict_dsec.main on the test recording into sub, launch counts
     reset just before and read just after; its PNGs against the test_mode
-    forward of cfg from ckpt on the same items (plain: every kernel
-    through its plain twin, TF32 off), within 1/128 px; ITERS lookup
-    launches per window."""
+    forward of cfg from ckpt on the same items, within 1/128 px (the PNG
+    truncates to 1/128); ITERS lookup launches per window. plain: that
+    forward also against the same forward with every kernel through its
+    plain twin and TF32 off, within F32_EVAL_TOL of the twins' largest
+    flow (the f32 norm kernel sums its statistics in another order than
+    its twin, so the two differ by round-off the recurrence carries)."""
     from bflow_tpu_torch import predict_dsec
     from bflow_tpu_torch.data.dsec.provider import DsecProvider
     from bflow_tpu_torch.data.io import load_flow_png
@@ -2173,26 +2317,34 @@ def predict_run(sub, root, ckpt, cfg, h: int = H, w: int = W, bf16=True,
                              "normalize_voxel_grid": True,
                              "height": h, "width": w}, cfg.nbins_context)
     (seq, test_ds), = provider.iter_test_sequences()
-    worst = 0.0
+    worst, twin_rel = 0.0, 0.0
     for i in range(len(test_ds)):
         item = test_ds[i]
         voxel = torch.from_numpy(item[K.EV_REPR.value])[None].to(device)
         images = torch.from_numpy(item[K.IMG.value])[:, None].to(device)
-        with (plain_twins() if plain else contextlib.nullcontext()), \
-                (tf32(False) if plain else contextlib.nullcontext()):
-            _, up = model(voxel, images, test_mode=True)
+        _, up = model(voxel, images, test_mode=True)
         flow = up.flow_at(1.0)[0].float().cpu().numpy()
+        if plain:
+            with plain_twins(), tf32(False):
+                _, up = model(voxel, images, test_mode=True)
+            twin = up.flow_at(1.0)[0].float().cpu().numpy()
+            twin_rel = max(twin_rel, float(np.abs(flow - twin).max()
+                                           / np.abs(twin).max()))
         dec, valid = load_flow_png(
             sub / seq / f"{int(item[K.FILE_INDEX.value]):06d}.png")
         check(dec.shape == (h, w, 2) and bool(valid.all()),
               f"PNG {i}: shape {dec.shape}, valid {valid.mean()}")
         worst = max(worst, float(np.abs(dec - flow).max()))
-    what = "plain_twins" if plain else "eval_forward"
-    check(worst <= 1 / 128, f"predict_dsec PNGs vs the {what}: {worst}")
+    check(worst <= 1 / 128, f"predict_dsec PNGs vs the eval forward: {worst}")
     check(counts[klookup.NAME] == ITERS * EVAL_TEST_WINDOWS,
           f"predict_dsec launches {counts}")
-    return {"pngs": len(pngs), "seconds": out["seconds"], "launches": counts,
-            f"max_abs_vs_{what}_px": worst, "bound_px": 1 / 128}
+    rec = {"pngs": len(pngs), "seconds": out["seconds"], "launches": counts,
+           "max_abs_vs_eval_forward_px": worst, "bound_px": 1 / 128}
+    if plain:
+        check(twin_rel <= F32_EVAL_TOL,
+              f"predict_dsec's forward vs the plain twins: {twin_rel}")
+        rec.update(rel_vs_plain_twins=twin_rel, twin_bound=F32_EVAL_TOL)
+    return rec
 
 
 def eval_phase(workdir, seed: int, device="cuda", h: int = H, w: int = W,
@@ -2502,6 +2654,10 @@ def train_phase(workdir, seed: int, device="cuda"):
     want = dict.fromkeys(kernels.KERNELS, 0)
     want[klookup.NAME] = cfg.iters_train * (steps + logs + val_batches)
     want[klookup.BWD_NAME] = cfg.iters_train * steps
+    # the media and val forwards (make_eval_step: eval mode, no grad)
+    # take the norm kernel at f32; the training steps do not
+    want[knorm.NAME] = norm_launches(cfg) * (logs + val_batches)
+    want[knorm.RESIDUAL_NAME] = residual_launches(cfg) * (logs + val_batches)
     meta = json.loads((run_dir / "ckpt" / "meta.json").read_text())
     keys = sorted({(m["key"], m["step"]) for m in media.images})
     strips = [m for m in media.images if m["key"] == "train/summary"]
@@ -2562,6 +2718,8 @@ def train_phase(workdir, seed: int, device="cuda"):
     want_r = dict.fromkeys(kernels.KERNELS, 0)
     want_r[klookup.NAME] = cfg.iters_train * (2 + 2 + 1)
     want_r[klookup.BWD_NAME] = cfg.iters_train * 2
+    want_r[knorm.NAME] = norm_launches(cfg) * (2 + 1)
+    want_r[knorm.RESIDUAL_NAME] = residual_launches(cfg) * (2 + 1)
     emit("train_cli_resume", steps=out_r["step"], samples=out_r["samples"],
          learning_rates=lrs_r, reference_learning_rates=want_lr,
          losses=[r["train/l1_multi_seq_loss"] for r in rows_r
@@ -3485,6 +3643,7 @@ def main() -> int:
     conv_loops_phase(args.seed)
     # 3d. the norm kernel at the bf16 DSEC cell's encoder shapes
     norm_recs, norm_request_ms = norm_phase(args.seed)
+    norm_f32_recs = norm_f32_phase(args.seed)
     # 3e. the convc1 kernel at the three map widths and the model's rows
     proj_recs, proj_request_ms = proj_phase(args.seed)
 
@@ -3849,7 +4008,8 @@ def main() -> int:
                     per_conv[kstem.NAME], opt_counts, eval_opt_counts),
         conv_summary(kconv.NAME, "bflow_tpu/ops/pallas/conv3x3.py:69",
                      per_conv[kconv.NAME], opt_counts, eval_opt_counts),
-        norm_summary(norm_recs, norm_request_ms, counts, eval_counts),
+        norm_summary(norm_recs, norm_request_ms, counts, eval_counts,
+                     norm_f32_recs),
         proj_summary(proj_recs, proj_request_ms, counts, eval_counts)]
     print(json.dumps({"kernels": summary}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -1,17 +1,19 @@
-"""The norm kernel of the bf16 encoders (bflow_tpu_torch/kernels/norm.py,
-csrc/norm.cu).
+"""The norm kernel of the encoders in inference, bf16 and f32
+(bflow_tpu_torch/kernels/norm.py, csrc/norm.cu).
 
 On the CPU: its plain version against the encoders' norms as the port
-computed them before the kernel, bit for bit, in both layouts; the dispatch,
-which keeps f32 inputs, calls that autograd records, train-mode BatchNorm
+computed them before the kernel, bit for bit, in both layouts and both
+types; the dispatch, which takes bf16 and f32 inference on the card and
+keeps calls that autograd records, train-mode BatchNorm, odd channel counts
 and CPU tensors off the kernel; the fused ReLU; the residual block's
 epilogue relu(x + y) (the plain versions, the blocks, the wrapper's choice
 between the kernel's epilogue and the eager one); the launch counts that
 chip_smoke.expected_launches derives; the C functions' parameters against
-the ctypes signatures. On a GPU (``-m cuda``): the kernel against its plain
-version at the encoders' shapes and a ragged one, in both layouts, its
-residual epilogue against the eager chain bit for bit, and the model's
-forwards through it.
+the ctypes signatures. On a GPU (``-m cuda``): the bf16 kernel against its
+plain version at the encoders' shapes and a ragged one, in both layouts,
+its residual epilogue against the eager chain bit for bit; the f32 kernel
+against the eager f32 chain at every encoder norm shape of the f32 cells;
+and the model's forwards through it.
 
 No JAX here, so the GPU cases run on a machine without it:
 
@@ -140,13 +142,47 @@ def test_f32_instance_norm_unchanged():
     assert torch.equal(text.InstanceNorm()(x), _before_instance(x))
 
 
+@pytest.mark.parametrize("relu", EPILOGUES)
+@pytest.mark.parametrize("layout", LAYOUTS)
+def test_plain_f32_norms_are_the_eager_chain(layout, relu):
+    """The plain versions at f32 are the eager chain the encoders ran
+    before the kernel took f32 (the two-pass instance norm in f32 with its
+    literal 1e-5, F.batch_norm, the ReLU, relu(x + y)), bit for bit, and
+    stay f32 in x's layout."""
+    x = _inputs(layout, 15, dtype=torch.float32)
+    m1 = x.mean(dim=(2, 3), keepdim=True)
+    var = (x - m1).square().mean(dim=(2, 3), keepdim=True)
+    eager = (x - m1) * torch.rsqrt(var + 1e-5)
+    relu_, res, want = _epilogue(eager, relu, layout, 22)
+    if res is not None:
+        res = res.float()
+        want = F.relu(res + F.relu(eager))
+    got = knorm.instance_norm_plain(x, relu_, res)
+    assert got.dtype == torch.float32 and torch.equal(got, want)
+    assert torch.equal(knorm.instance_norm(x, relu_, res), want)
+    assert got.is_contiguous(memory_format=(
+        torch.channels_last if layout == "channels_last"
+        else torch.contiguous_format))
+    bn = _batch_norm(16, 16)
+    stats = (bn.running_mean, bn.running_var, bn.weight, bn.bias, bn.eps)
+    y = F.batch_norm(x, *stats[:4], False, 0.0, bn.eps)
+    want_b = (y if not relu_ else F.relu(y)) if res is None else F.relu(
+        res + F.relu(y))
+    with torch.no_grad():
+        assert torch.equal(knorm.batch_norm_plain(x, *stats, relu_, res),
+                           want_b)
+        assert torch.equal(knorm.batch_norm(x, *stats, relu_, res), want_b)
+
+
 class _Spy:
-    """Stands in for the kernel wrappers and records who reached them and
-    whether with a residual."""
+    """Stands in for the kernel wrappers and records who reached them,
+    whether with a residual, and whether the kernel would read that
+    residual in place (knorm.residual_fits)."""
 
     def __init__(self, monkeypatch):
         self.calls = []
         self.residuals = []
+        self.fits = []
         for name in ("instance_norm", "batch_norm"):
             plain = getattr(knorm, f"{name}_plain")
             monkeypatch.setattr(knorm, name, self._wrap(name, plain))
@@ -155,8 +191,10 @@ class _Spy:
         def fn(*args, **kwargs):
             self.calls.append(name)
             bound = inspect.signature(plain).bind(*args, **kwargs)
-            self.residuals.append(
-                bound.arguments.get("residual") is not None)
+            res = bound.arguments.get("residual")
+            self.residuals.append(res is not None)
+            self.fits.append(res is not None and knorm.residual_fits(
+                bound.arguments["x"], res))
             return plain(*args, **kwargs)
         return fn
 
@@ -184,44 +222,65 @@ def test_dispatch_takes_the_kernel_in_bf16_inference(on_card):
     assert on_card.calls == ["instance_norm"]
 
 
+def test_dispatch_takes_the_kernel_in_f32_inference(on_card):
+    """f32 inference on the card goes through the kernel too, its output
+    the eager f32 chain's (the spies run the plain versions)."""
+    x = _inputs("channels_last", 17, dtype=torch.float32)
+    bn = _batch_norm(16, 18)
+    with torch.no_grad():
+        got_i = text.InstanceNorm()(x, relu=True)
+        got_b = bn(x, relu=True)
+    assert on_card.calls == ["instance_norm", "batch_norm"]
+    assert torch.equal(got_i, F.relu(_before_instance(x)))
+    assert torch.equal(got_b, F.relu(_before_batch(bn, x)))
+
+
 def test_dispatch_keeps_f32_training_and_odd_channels_off(on_card):
+    """Training at f32 or bf16 (autograd records the norm, or BatchNorm
+    takes the batch's statistics), a channel count the kernel does not
+    take and a type it does not take keep the eager code."""
     bn = _batch_norm(16, 7)
-    x32 = _inputs("channels_last", 8, dtype=torch.float32)
+    for dtype in (torch.float32, torch.bfloat16):
+        # autograd records: the input or the BatchNorm's parameters need
+        # grad
+        x = _inputs("channels_last", 9, dtype=dtype).requires_grad_(True)
+        y = text.InstanceNorm()(x, relu=True)
+        assert torch.equal(y, F.relu(_before_instance(x.detach())))
+        y.float().sum().backward()
+        assert x.grad is not None
+        bn.eval()(_inputs("channels_last", 10, dtype=dtype))
+        # train-mode BatchNorm takes the batch's statistics, even without
+        # grad
+        with torch.no_grad():
+            bn.train()(_inputs("channels_last", 11, dtype=dtype))
+        # a channel count the kernel does not take
+        with torch.no_grad():
+            x12 = _inputs("nchw", 12, c=12, dtype=dtype)
+            assert torch.equal(text.InstanceNorm()(x12),
+                               _before_instance(x12))
     with torch.no_grad():
-        assert torch.equal(text.InstanceNorm()(x32), _before_instance(x32))
-        assert torch.equal(bn(x32), _before_batch(bn, x32))
-    # autograd records: the input or the BatchNorm's parameters need grad
-    x = _inputs("channels_last", 9).requires_grad_(True)
-    y = text.InstanceNorm()(x, relu=True)
-    assert torch.equal(y, F.relu(_before_instance(x.detach())))
-    y.float().sum().backward()
-    assert x.grad is not None
-    bn(_inputs("channels_last", 10))
-    # train-mode BatchNorm takes the batch's statistics, even without grad
-    with torch.no_grad():
-        bn.train()(_inputs("channels_last", 11))
-    # a channel count the kernel does not take
-    with torch.no_grad():
-        x12 = _inputs("nchw", 12, c=12)
-        assert torch.equal(text.InstanceNorm()(x12), _before_instance(x12))
+        x64 = _inputs("nchw", 8, dtype=torch.float64)
+        assert not knorm.engages(x64)
+        text.InstanceNorm()(x64)
     assert on_card.calls == []
 
 
 def test_dispatch_keeps_cpu_tensors_off_the_kernel(monkeypatch):
-    """On the CPU a bf16 encoder forward launches nothing and computes what
-    it did before the kernel (the norms' plain versions)."""
+    """On the CPU a bf16 or f32 encoder forward launches nothing and
+    computes what it did before the kernel (the norms' plain versions)."""
     calls = []
     monkeypatch.setattr(knorm, "_instance_cuda",
                         lambda *a: calls.append(a))
     monkeypatch.setattr(knorm, "_batch_cuda", lambda *a: calls.append(a))
     kernels.reset_launch_counts()
-    for norm in ("instance", "batch"):
-        enc = text.BasicEncoder(5, 24, norm, compute_dtype=torch.bfloat16)
-        text.init_weights(enc, torch.Generator().manual_seed(0))
-        with torch.no_grad():
-            out = enc.eval()(_inputs("nchw", 13, n=1, c=5, h=32, w=40,
-                                     dtype=torch.float32))
-        assert out.dtype == torch.bfloat16 and out.shape == (1, 24, 4, 5)
+    for dtype in (torch.bfloat16, torch.float32):
+        for norm in ("instance", "batch"):
+            enc = text.BasicEncoder(5, 24, norm, compute_dtype=dtype)
+            text.init_weights(enc, torch.Generator().manual_seed(0))
+            with torch.no_grad():
+                out = enc.eval()(_inputs("nchw", 13, n=1, c=5, h=32, w=40,
+                                         dtype=torch.float32))
+            assert out.dtype == dtype and out.shape == (1, 24, 4, 5)
     assert calls == [] and kernels.launch_counts()[knorm.NAME] == 0
 
 
@@ -262,7 +321,8 @@ def test_residual_block_equals_the_unfused_chain(monkeypatch, dtype, norm,
     the same tensor as the unfused chain, bit for bit, with and without a
     downsample, on the CPU and through the dispatch with the gate's device
     test passed (the kernel wrappers then run their plain versions), where
-    the instance norms and eval BatchNorms of a bf16 block take it."""
+    the instance norms and eval BatchNorms of a bf16 or f32 block take
+    it."""
     block = _block(norm, stride, dtype, 30 + stride)
     x = _inputs("channels_last", 31, c=_cin(stride), h=10, w=12,
                 dtype=dtype)
@@ -273,7 +333,7 @@ def test_residual_block_equals_the_unfused_chain(monkeypatch, dtype, norm,
         monkeypatch.setattr(knorm, "_on_card", lambda t: True)
         got = block(x)
     assert got.dtype == dtype and torch.equal(got, want)
-    kernel = dtype == torch.bfloat16 and norm in ("instance", "batch")
+    kernel = norm in ("instance", "batch")
     # norm1, the downsample's norm, norm2 with the shortcut
     want_res = [False] * (1 + (stride == 2)) + [True]
     assert spy.residuals == (want_res if kernel else [])
@@ -309,64 +369,93 @@ def test_residual_fits_only_in_the_inputs_layout():
     assert knorm.residual_fits(view, _inputs("nchw", 47))
 
 
-@pytest.mark.parametrize("shortcut", ["fits", "nchw", "float32"])
-@pytest.mark.parametrize("kind", ["instance", "batch"])
-def test_wrapper_fuses_a_fitting_shortcut_else_adds_it_after(
-        monkeypatch, kind, shortcut):
+def _wrapper_with_shortcut(monkeypatch, kind, shortcut, dtype):
     """The CUDA wrapper with a stand-in launch that writes the plain
-    norm's bytes (or, handed the shortcut's pointer, the fused result's):
-    a shortcut in z's layout and type goes to the kernel and counts one
-    residual launch; another layout or type gets no pointer, and
-    relu(x + y) follows the kernel as two PyTorch ops. Either way the
-    block's tensor."""
-    z = _inputs("channels_last", 50)
+    norm's bytes (or, handed the shortcut's pointer, the fused result's)
+    over a ``dtype`` input z, with a shortcut x that fits, or lies in NCHW,
+    or has the other type; the C function's name it asked for."""
+    other = torch.float32 if dtype == torch.bfloat16 else torch.bfloat16
+    z = _inputs("channels_last", 50, dtype=dtype)
     bn = _batch_norm(16, 51)
     stats = (bn.running_mean, bn.running_var, bn.weight, bn.bias, bn.eps)
-    x = _inputs("channels_last", 52)
+    x = _inputs("channels_last", 52, dtype=dtype)
     if shortcut == "nchw":
         x = x.contiguous()
-    elif shortcut == "float32":
-        x = x.float()
+    elif shortcut == "other_type":
+        x = x.to(other)
     plain = (knorm.instance_norm_plain(z, True) if kind == "instance"
              else knorm.batch_norm_plain(z, *stats, True))
-    fused = F.relu(x.bfloat16() + plain)
-    seen = []
+    fused = F.relu(x.to(dtype) + plain)
+    seen, symbols = [], []
 
     def launch(fn, device, x_ptr, out_ptr, res_ptr, *rest):
         seen.append(res_ptr)
         src = plain if res_ptr is None else fused
         assert res_ptr in (None, x.data_ptr())
-        ctypes.memmove(out_ptr, src.data_ptr(), 2 * src.numel())
+        ctypes.memmove(out_ptr, src.data_ptr(),
+                       src.element_size() * src.numel())
 
-    monkeypatch.setattr(kbuild, "function", lambda *a: None)
+    monkeypatch.setattr(kbuild, "function",
+                        lambda name, symbol, args: symbols.append(symbol))
     monkeypatch.setattr(kbuild, "launch", launch)
     kernels.reset_launch_counts()
     with torch.no_grad():
         got = (knorm._instance_cuda(z, True, x) if kind == "instance"
                else knorm._batch_cuda(z, *stats, True, x))
     assert torch.equal(got, F.relu(x + plain))
-    assert got.dtype == x.dtype
+    assert got.dtype == torch.promote_types(x.dtype, dtype)
     fits = shortcut == "fits"
     assert seen == [x.data_ptr() if fits else None]
     counts = kernels.launch_counts()
     assert counts[knorm.NAME] == 1 and counts[knorm.RESIDUAL_NAME] == fits
+    return symbols
+
+
+@pytest.mark.parametrize("shortcut", ["fits", "nchw", "float32"])
+@pytest.mark.parametrize("kind", ["instance", "batch"])
+def test_wrapper_fuses_a_fitting_shortcut_else_adds_it_after(
+        monkeypatch, kind, shortcut):
+    """A bf16 z: a shortcut in z's layout and type goes to the kernel and
+    counts one residual launch; another layout or type gets no pointer,
+    and relu(x + y) follows the kernel as two PyTorch ops. Either way the
+    block's tensor."""
+    symbols = _wrapper_with_shortcut(
+        monkeypatch, kind, "other_type" if shortcut == "float32"
+        else shortcut, torch.bfloat16)
+    assert symbols == [f"norm_{kind}_bf16"]
+
+
+@pytest.mark.parametrize("shortcut", ["fits", "nchw", "other_type"])
+@pytest.mark.parametrize("kind", ["instance", "batch"])
+def test_wrapper_fuses_an_f32_shortcut_else_adds_it_after(
+        monkeypatch, kind, shortcut):
+    """The same over an f32 z: the f32 C function, an f32 shortcut in z's
+    layout fused, a bf16 or NCHW one added after the kernel."""
+    symbols = _wrapper_with_shortcut(monkeypatch, kind, shortcut,
+                                     torch.float32)
+    assert symbols == [f"norm_{kind}_f32"]
 
 
 def test_dispatch_keeps_the_epilogue_eager_when_autograd_records(on_card):
     """A shortcut that autograd records keeps the whole norm off the
-    kernel; in f32 the norms never reach it."""
-    z = _inputs("channels_last", 53)
-    x = _inputs("channels_last", 54).requires_grad_(True)
-    y = text.InstanceNorm()(z, relu=True, residual=x)
-    assert torch.equal(y, F.relu(x.detach() + F.relu(_before_instance(z))))
-    y.float().sum().backward()
-    assert x.grad is not None
+    kernel, in bf16 and in f32; in f32 inference the norm and its shortcut
+    reach it."""
+    for i, dtype in enumerate((torch.bfloat16, torch.float32)):
+        z = _inputs("channels_last", 53 + 3 * i, dtype=dtype)
+        x = _inputs("channels_last", 54 + 3 * i,
+                    dtype=dtype).requires_grad_(True)
+        y = text.InstanceNorm()(z, relu=True, residual=x)
+        assert torch.equal(y, F.relu(x.detach()
+                                     + F.relu(_before_instance(z))))
+        y.float().sum().backward()
+        assert x.grad is not None
+    assert on_card.calls == []
     z32 = _inputs("channels_last", 55, dtype=torch.float32)
     x32 = _inputs("channels_last", 56, dtype=torch.float32)
     with torch.no_grad():
         got = text.InstanceNorm()(z32, relu=True, residual=x32)
     assert torch.equal(got, F.relu(x32 + F.relu(_before_instance(z32))))
-    assert on_card.calls == []
+    assert on_card.calls == ["instance_norm"] and on_card.residuals == [True]
 
 
 def _c_params(symbol):
@@ -380,7 +469,9 @@ def _c_params(symbol):
 
 @pytest.mark.parametrize("symbol, argtypes", [
     ("norm_instance_bf16", knorm._INSTANCE_ARGS),
-    ("norm_batch_bf16", knorm._BATCH_ARGS)])
+    ("norm_batch_bf16", knorm._BATCH_ARGS),
+    ("norm_instance_f32", knorm._INSTANCE_ARGS),
+    ("norm_batch_f32", knorm._BATCH_ARGS)])
 def test_ctypes_signatures_match_the_c_functions(symbol, argtypes):
     """A pointer for each pointer, an int for each int, a float for eps,
     the stream last: ctypes would pass anything else unchecked."""
@@ -395,8 +486,10 @@ def test_wrapper_refuses_what_the_kernel_does_not_take(c):
     assert not knorm.supported(x.shape)
     with pytest.raises(ValueError):
         knorm.instance_norm(x)
-    with pytest.raises(TypeError):
-        knorm.instance_norm(_inputs("nchw", 14, dtype=torch.float32))
+    # a type it has no instantiation for (bf16 and f32 it takes)
+    for dtype in (torch.float64, torch.float16):
+        with pytest.raises(TypeError):
+            knorm.instance_norm(_inputs("nchw", 14, dtype=dtype))
 
 
 @pytest.mark.parametrize("shape, layout, want", [
@@ -414,8 +507,9 @@ def test_chunks_fill_the_card(shape, layout, want):
 
 
 def test_expected_launches_count_the_norms():
-    """45 norms a bf16 E_I forward (two instance-norm encoders and cnet's
-    eval BatchNorm), 30 events-only, none in f32 or in training."""
+    """45 norms a bf16 or f32 E_I forward (two instance-norm encoders and
+    cnet's eval BatchNorm), 18 of them with their block's shortcut; 30
+    events-only; none in training."""
     import chip_smoke
 
     cfg = bt.flagship_config()
@@ -425,8 +519,11 @@ def test_expected_launches_count_the_norms():
     assert [want(cfg, train=True)[k] for k in names] == [0, 0]
     assert [want(dataclasses.replace(cfg, use_images=False))[k]
             for k in names] == [30, 12]
-    assert [want(dataclasses.replace(cfg, compute_dtype="float32"))[k]
-            for k in names] == [0, 0]
+    f32 = dataclasses.replace(cfg, compute_dtype="float32")
+    assert [want(f32)[k] for k in names] == [45, 18]
+    assert [want(f32, train=True)[k] for k in names] == [0, 0]
+    assert [want(dataclasses.replace(f32, use_images=False))[k]
+            for k in names] == [30, 12]
     enc = text.BasicEncoder(5, 24, "instance")
     assert sum(isinstance(m, (text.InstanceNorm, text.BatchNorm))
                for m in enc.modules()) == 15
@@ -450,6 +547,29 @@ def test_bf16_encoders_hand_every_block_its_shortcut(on_card):
     assert sum(on_card.residuals) == want[knorm.RESIDUAL_NAME] == 18
 
 
+def test_f32_encoders_hand_every_block_its_shortcut(on_card):
+    """The same at f32 (the f32 eval cells' precision): 45 norms reach the
+    kernel wrappers, 18 with their block's shortcut, every shortcut in its
+    norm input's type and layout, as expected_launches derives; a training
+    forward reaches them never."""
+    import chip_smoke
+
+    cfg = dataclasses.replace(bt.flagship_config(), compute_dtype="float32",
+                              corr_precision="float32")
+    model = bt.build_model(cfg, device="cpu", seed=0)
+    with torch.no_grad():
+        model(torch.randn(1, 64, 96, cfg.nbins_total),
+              torch.rand(2, 1, 64, 96, 3) * 255, iters=1, test_mode=True)
+    want = chip_smoke.expected_launches(cfg, 1, 64, 96, 1)
+    assert len(on_card.calls) == want[knorm.NAME] == 45
+    assert sum(on_card.residuals) == want[knorm.RESIDUAL_NAME] == 18
+    assert on_card.fits == on_card.residuals
+    on_card.calls.clear()
+    model.train()(torch.randn(1, 64, 96, cfg.nbins_total),
+                  torch.rand(2, 1, 64, 96, 3) * 255, iters=1)
+    assert on_card.calls == []
+
+
 # ---------------------------------------------------------------------------
 # on a GPU
 
@@ -466,6 +586,30 @@ def cuda_device():
 # odd) that no block or vector width divides
 GPU_SHAPES = [(2, 64, 240, 320), (2, 96, 120, 160), (3, 128, 60, 80),
               (3, 64, 37, 53)]
+# (kind, N, C, H, W): every encoder norm of the f32 eval cells at B=8
+# (chip_smoke.NORM_F32_SHAPES: DSEC at 480x640, fnet_ev's 40 slices,
+# fnet_img's 16 frames and cnet's BatchNorm over 8; MultiFlow at 384x512,
+# fnet_ev's 48), and the ragged shape with both kinds
+F32_GPU_SHAPES = [
+    (kind, n, c, h, w)
+    for (kind, n), stages in (
+        (("instance", 40), ((64, 240, 320), (96, 120, 160), (128, 60, 80))),
+        (("instance", 16), ((64, 240, 320), (96, 120, 160), (128, 60, 80))),
+        (("batch", 8), ((64, 240, 320), (96, 120, 160), (128, 60, 80))),
+        (("instance", 48), ((64, 192, 256), (96, 96, 128), (128, 48, 64))),
+        (("instance", 16), ((64, 192, 256), (96, 96, 128), (128, 48, 64))),
+        (("batch", 8), ((64, 192, 256), (96, 96, 128), (128, 48, 64))))
+    for c, h, w in stages] + [("instance", 3, 64, 37, 53),
+                              ("batch", 3, 64, 37, 53)]
+
+
+def test_f32_gpu_shapes_cover_the_f32_cells():
+    """The GPU cases below take every encoder norm shape of the f32 eval
+    cells that chip_smoke derives from their encoders."""
+    import chip_smoke
+
+    assert set(chip_smoke.NORM_F32_SHAPES) <= set(F32_GPU_SHAPES)
+    assert len(chip_smoke.NORM_F32_SHAPES) == 18
 
 
 @pytest.mark.cuda
@@ -504,6 +648,26 @@ def test_norm_kernel_residual_equals_eager_chain_on_gpu(cuda_device, shape,
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("epilogue", ["plain", "relu", "residual"])
+@pytest.mark.parametrize("layout", LAYOUTS)
+@pytest.mark.parametrize("kind, n, c, h, w", F32_GPU_SHAPES)
+def test_f32_norm_kernel_matches_eager_chain_on_gpu(cuda_device, kind, n, c,
+                                                    h, w, layout, epilogue):
+    """The f32 kernel against the eager f32 chain it replaces (its plain
+    version, the ReLU and relu(x + y) after it): within
+    chip_smoke.NORM_F32_ULPS x 2^-23 of max|eager|, the few ulp by which
+    another order of the statistics' sums and another rounding of
+    1/sqrt(var + eps) move an output; a second launch bit-equal; f32 in the
+    input's layout; one launch (and one residual launch) a call."""
+    import chip_smoke
+
+    rec = chip_smoke.check_norm_f32(kind, n, c, h, w,
+                                    layout == "channels_last",
+                                    seed=n + c + h + w, epilogue=epilogue)
+    assert rec["ok"], rec
+
+
+@pytest.mark.cuda
 def test_norm_kernel_refuses_odd_channels_on_gpu(cuda_device):
     x = torch.randn(2, 12, 8, 8, device=cuda_device).bfloat16()
     assert not knorm.supported(x.shape)
@@ -521,8 +685,10 @@ def test_encoders_run_every_norm_through_the_kernel_on_gpu(cuda_device,
                                                            opt_in):
     """A bf16 forward launches the norm kernel 45 times, 18 with the
     block's shortcut (both layouts: the conv kernels hand it channels-last,
-    cuDNN NCHW), matches the same forward on the plain twins, and an f32
-    or training forward launches it never."""
+    cuDNN NCHW), and matches the same forward on the plain twins; an f32
+    inference forward launches what expected_launches derives (45 norms,
+    18 with the shortcut) and its flows agree with the plain twins' to
+    1e-5 of their largest; a training forward launches it never."""
     import chip_smoke
 
     cfg = chip_smoke.opt_in_config() if opt_in else bt.flagship_config()
@@ -539,15 +705,26 @@ def test_encoders_run_every_norm_through_the_kernel_on_gpu(cuda_device,
     err = ((up.params.float() - twin.params.float()).abs().max()
            / twin.params.float().abs().max())
     assert err < 5e-2, err.item()
-    f32 = bt.build_model(dataclasses.replace(
+    f32 = chip_smoke.damp_head(bt.build_model(dataclasses.replace(
         cfg, compute_dtype="float32", corr_precision="float32",
         lookup_method="pallas", pallas_conv=False, pallas_stem=False),
-        device="cuda")
+        device="cuda"))
+    kernels.reset_launch_counts()
+    _, up = f32(voxel, images, iters=2, test_mode=True)
+    torch.cuda.synchronize()
+    counts = kernels.launch_counts()
+    assert counts == chip_smoke.expected_launches(f32.config, 1, 64, 96, 2)
+    assert counts[knorm.NAME] == 45 and counts[knorm.RESIDUAL_NAME] == 18
+    with chip_smoke.plain_twins():
+        _, twin = f32(voxel, images, iters=2, test_mode=True)
+    err = (up.params - twin.params).abs().max() / twin.params.abs().max()
+    assert err <= 1e-5, err.item()
     train = bt.build_model(dataclasses.replace(cfg, lookup_method="pallas"),
                            device="cuda").train()
+    train32 = bt.build_model(f32.config, device="cuda").train()
     kernels.reset_launch_counts()
-    f32(voxel, images, iters=2, test_mode=True)
     train(voxel, images, iters=2, test_mode=False)
+    train32(voxel, images, iters=2, test_mode=False)
     torch.cuda.synchronize()
     assert kernels.launch_counts()[knorm.NAME] == 0
     assert kernels.launch_counts()[knorm.RESIDUAL_NAME] == 0
